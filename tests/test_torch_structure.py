@@ -1,0 +1,143 @@
+"""Structure of the PyTorch port: it imports no JAX and nothing of the JAX
+package, its entry points default to the GPU, and the compositing kernel
+is held against its plain version on a card (tests marked ``cuda``, which
+skip without one; ``chip_smoke.py`` runs the same comparison at the eval
+path's shapes)."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import diner_tpu_torch
+from diner_tpu_torch.data.synthetic import make_sphere_scene
+from diner_tpu_torch.device import resolve_device
+from diner_tpu_torch.ops import composite as plain
+from diner_tpu_torch.ops import composite_cuda, cuda_build
+from diner_tpu_torch.train.diner import DinerConfig, create_model
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diner_tpu")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        diner_tpu_torch.__path__, "diner_tpu_torch."))
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _forbidden_imports(source: str, name: str = "<src>"):
+    found = []
+    for node in ast.walk(ast.parse(source, name)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+def test_no_jax_import_in_port_sources():
+    files = sorted((ROOT / "diner_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        assert _forbidden_imports(f.read_text(), str(f)) == [], f
+    # the scan is not vacuous
+    assert _forbidden_imports("from diner_tpu.ops import composite\n"
+                              "import jax.numpy\nimport torch") == [
+        "diner_tpu.ops", "jax.numpy"]
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model(DinerConfig(), make_sphere_scene(H=8, W=8, nv=2))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_build_goes_to_ignored_build_dir():
+    path = cuda_build.library_path("composite_fwd")
+    assert path.parent == ROOT / "build" / "kernels"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert (cuda_build.PKG_DIR / cuda_build.SOURCES["composite_fwd"]).exists()
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    x = torch.zeros(1, 4, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        composite_cuda.composite_kernel(torch.zeros(1, 4, 3, 3), x, x,
+                                        torch.zeros(1, 4, 8))
+    with pytest.raises(ValueError, match="shapes"):
+        composite_cuda.composite_kernel(x, x[..., 0], x, torch.zeros(1, 4))
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this on the H100")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _field_case(R, K, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = torch.rand((1, R, K, 4), generator=g)
+    out[..., 3] = torch.randn((1, R, K), generator=g) * 2
+    z = torch.sort(torch.rand((1, R, K), generator=g) * 1.5 + 0.5).values
+    rays = torch.zeros((1, R, 8))
+    rays[..., 7] = 2.5
+    return [t.to(device) for t in (out, z, rays)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K", [(4096, 64), (4097, 40)])
+@pytest.mark.parametrize("white", [False, True])
+def test_kernel_matches_plain_version(cuda, R, K, white):
+    out, z, rays = _field_case(R, K, R + K, cuda)
+    before = composite_cuda.launches
+    got = composite_cuda.composite(out[..., :3], out[..., 3], z, rays, white)
+    torch.cuda.synchronize()
+    assert composite_cuda.launches == before + 1
+    ref = plain.composite(out[..., :3], out[..., 3], z, rays, white)
+    for a, b in zip(got, ref):  # f32 sums in another order
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_grad_and_foreign_layouts(cuda):
+    out, z, rays = _field_case(64, 8, 0, cuda)
+    with pytest.raises(NotImplementedError):
+        composite_cuda.composite(out[..., :3].clone().requires_grad_(),
+                                 out[..., 3], z, rays)
+    out2, rays2 = out.reshape(2, 32, 8, 4), rays.reshape(2, 32, 8)
+    z2 = z.reshape(32, 2, 8).transpose(0, 1)  # (2, 32, 8), rays not mergeable
+    with pytest.raises(ValueError, match="without a copy"):
+        composite_cuda.composite(out2[..., :3], out2[..., 3], z2, rays2)
+    with pytest.raises(ValueError, match="float32"):
+        composite_cuda.composite(out[..., :3].double(), out[..., 3], z, rays)
