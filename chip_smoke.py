@@ -1,17 +1,31 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (``diner_tpu_torch``) on one NVIDIA GPU.
 
-Builds every CUDA kernel of the eval-render path from the sources in this
-checkout, holds each kernel against its plain PyTorch version on the card,
-then drives the main path through the port's entry points: a seeded DINER
-at the DTU eval protocol (4 source views at 512×640, ResNet34 encoder with
-a 64 px PE ring, 512-wide ResnetFC, 64 samples from 1000 candidates with
-24 Gaussian resamples, 4096-ray chunks, bf16 compute) renders a full
-512×640 target of the synthetic sphere scene. It checks the launch counts,
-the outputs, a 1024-ray f32 crop rendered through the kernel and through
-the plain composite, and a small render on the card against the same
-render on the CPU. A profiler pass and per-layer CUDA-event timings of one
-warm render say where the time goes.
+Builds every CUDA kernel of the port from the sources in this checkout
+(kernel A, the compositing forward; kernel B, its backward), holds each
+against its plain PyTorch version on the card, then drives the port's two
+paths through its entry points, with the launch counts set to 0 just
+before each and read just after:
+
+- eval: a seeded DINER at the DTU eval protocol (4 source views at
+  512×640, ResNet34 encoder with a 64 px PE ring, 512-wide ResnetFC, 64
+  samples from 1000 candidates with 24 Gaussian resamples, 4096-ray
+  chunks, bf16 compute) renders a full 512×640 target of the synthetic
+  sphere scene. Checks: launch counts, outputs, a 1024-ray f32 crop
+  through the kernel and through the plain composite, and a small render
+  on the card against the same render on the CPU.
+- training: the production step of ``bench.py:73-93`` (the same model, 40
+  samples from 1000 candidates with 15 Gaussian resamples, a 64×64
+  foreground patch of 4096 rays, MSE + 0.1·VGG19 + 1.0·antibias, Adam at
+  lr 1e-4) takes 2 warm-up and 5 timed steps. Checks: kernels A and B
+  once per step, finite losses and gradients, parameters and BN running
+  statistics moved, a 1024-ray f32 step through the kernels against the
+  same step through the plain composite, and a small step on the card
+  against the same step on the CPU.
+
+Profiler passes and per-layer CUDA-event timings of both paths say where
+the time goes; ``index_select`` is timed at the two hot shapes of the
+not-yet-ported row gather (kernel C) as its yardstick.
 
 Each phase prints one JSON line; any failed check exits nonzero. The last
 three lines are the kernel table, the card's name and power limit as
@@ -28,6 +42,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -35,6 +50,9 @@ OUT_DIR = ROOT / "outputs" / "chip_smoke"  # git-ignored
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 COMPOSITE_FLOPS_PER_SAMPLE = 17  # delta, alpha (exp as 1), w, 4 sums, T
+# kernel B: two recomputes of delta, alpha, w, T and dL/dw (2 × 16), the
+# running sums (4), then dL/dalpha, d_sigma and d_rgb (14)
+COMPOSITE_BWD_FLOPS_PER_SAMPLE = 50
 LOG = []
 
 
@@ -137,6 +155,63 @@ def phase_kernel():
     return rows
 
 
+def phase_kernel_bwd():
+    """Kernel B against ``composite_bwd`` on the card. The train step hands
+    it only g_rgb (its depth and weights outputs are unused); the cases
+    with g_depth and g_w exercise the rest of the VJP."""
+    from diner_tpu_torch.ops import composite as plain
+    from diner_tpu_torch.ops import composite_cuda
+    rows = []
+    for R, K in ((4096, 40), (4096, 64), (4097, 40)):
+        for white in (False, True):
+            for with_g_w in (False, True):
+                rgb, sigma, z, rays = field_case(R, K, 7 * R + K + white)
+                g = torch.Generator(device="cuda").manual_seed(K + with_g_w)
+                g_rgb = torch.randn((1, R, 3), generator=g, device="cuda")
+                g_depth, g_w = ((torch.randn((1, R), generator=g,
+                                             device="cuda"),
+                                 torch.randn((1, R, K), generator=g,
+                                             device="cuda"))
+                                if with_g_w else (None, None))
+                args = (rgb, sigma, z, rays, g_rgb, g_depth, g_w, white)
+                got = composite_cuda.composite_bwd_kernel(*args)
+                torch.cuda.synchronize()
+                ref = plain.composite_bwd(rgb, sigma, z, rays[..., 7],
+                                          *args[4:])
+                err_rgb = max_err(got[:1], ref[:1])
+                err_sigma = max_err(got[1:], ref[1:])
+                scale = float(ref[1].abs().max())
+                row = dict(R=R, K=K, white_bkgd=white,
+                           g_depth_and_g_w=with_g_w,
+                           max_abs_err=max(err_rgb, err_sigma),
+                           err_d_rgb=err_rgb, err_d_sigma=err_sigma,
+                           d_sigma_scale=scale)
+                if (R, K, white) == (4096, 40, False):
+                    row["ms"] = cuda_time_ms(
+                        lambda: composite_cuda.composite_bwd_kernel(*args))
+                    row["plain_ms"] = cuda_time_ms(
+                        lambda: plain.composite_bwd(rgb, sigma, z,
+                                                    rays[..., 7], *args[4:]))
+                    n_in = R * K * 5 + R * 4      # rgb, sigma, z; far, g_rgb
+                    if with_g_w:
+                        n_in += R * K + R         # g_w, g_depth
+                    n_out = R * K * 4             # d_rgb, d_sigma
+                    t_bytes = 4 * (n_in + n_out) / HBM_BYTES_PER_S
+                    t_ops = (COMPOSITE_BWD_FLOPS_PER_SAMPLE * R * K
+                             / F32_FLOPS_PER_S)
+                    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+                    row["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+                emit("kernel_bwd", name="composite_bwd", **row)
+                # d_rgb 1e-5 absolute; d_sigma 1e-4 of its largest value:
+                # the suffix is total − prefix in the kernel, a reverse sum
+                # in the plain version
+                check(err_rgb <= 1e-5 and err_sigma <= 1e-4 * scale,
+                      f"composite_bwd kernel vs plain {row}")
+                rows.append(row)
+    return rows
+
+
 def dtu_eval_config():
     from diner_tpu_torch.models.pixelnerf import PixelNeRFConfig
     from diner_tpu_torch.nn.spatial_encoder import SpatialEncoderConfig
@@ -181,16 +256,16 @@ def phase_path():
           f"expected {n_chunks}")
 
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.launches = 0
+    composite_cuda.launches = composite_cuda.bwd_launches = 0
     t2 = time.perf_counter()
     rgb, depth = step(batch, generator=gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t2
-    launches = composite_cuda.launches
+    launches = (composite_cuda.launches, composite_cuda.bwd_launches)
     peak = torch.cuda.max_memory_allocated()
-    check(launches == n_chunks,
-          f"warm render launched the kernel {launches} times, "
-          f"expected {n_chunks}")
+    check(launches == (n_chunks, 0),
+          f"warm render launched kernels A and B {launches} times, "
+          f"expected ({n_chunks}, 0)")
     check(rgb.shape == (1, H, W, 3) and depth.shape == (1, H, W),
           f"output shapes {tuple(rgb.shape)} {tuple(depth.shape)}")
     check(bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all()),
@@ -198,27 +273,28 @@ def phase_path():
     hit = float((depth > 0).float().mean())
     check(hit > 0, "no ray has depth > 0")
     emit("path", config="DTU eval protocol, bf16, sphere scene 512x640 nv=4",
-         chunks=n_chunks, launches=launches, launches_first_render=launches_first,
+         chunks=n_chunks, launches=launches[0], launches_bwd=launches[1],
+         launches_first_render=launches_first,
          model_init_s=t_model, first_image_s=t_first,
          time_to_first_image_s=t_model + t_first, warm_s_per_image=t_warm,
          peak_mem_bytes=peak, share_depth_gt0=hit,
          rgb_mean=float(rgb.mean()), depth_mean=float(depth.mean()))
 
-    profile_render(step, batch, gen)
+    profile_once("profile", lambda: step(batch, generator=gen))
     stage_times(model, cfg, batch, H, W)
     crop_check(model, cfg, batch, H, W)
     return launches
 
 
-def profile_render(step, batch, gen):
-    """Kernel time by name over one warm render, and the device's idle
-    share (1 − summed kernel time / wall time of the render)."""
+def profile_once(phase, fn):
+    """Kernel time by name over one warm call of ``fn``, and the device's
+    idle share (1 − summed kernel time / wall time of the call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, generator=gen)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -231,12 +307,13 @@ def profile_render(step, batch, gen):
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
     top = sorted(ops, key=lambda e: getattr(e, attr), reverse=True)[:12]
-    emit("profile", wall_ms=wall * 1e3, kernel_ms=busy_ms,
-         idle_share=1 - busy_ms / (wall * 1e3), top_ops=[
+    emit(phase, wall_ms=wall * 1e3, kernel_ms=busy_ms,
+         idle_share=1 - busy_ms / (wall * 1e3),
+         device_kernels=sum(e.count for e in kernels), top_ops=[
              {"op": e.key, "device_ms": getattr(e, attr) / 1e3,
               "calls": e.count} for e in top])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
+    (OUT_DIR / f"chip_smoke_{phase}.txt").write_text(
         events.table(sort_by=attr, row_limit=80))
 
 
@@ -349,6 +426,320 @@ def phase_small_reference():
     check(share >= 0.99, f"card vs CPU render: {share} of pixels within 1e-4")
 
 
+def dtu_train_config():
+    """The production training recipe of ``bench.py:73-93``
+    (``production=True, pruned=False``; reference
+    ``configs/train_dtu.yaml``)."""
+    from diner_tpu_torch.renderer import RendererConfig
+    eval_cfg = dtu_eval_config()
+    return dataclasses.replace(
+        eval_cfg,
+        renderer=RendererConfig(n_samples=40, n_depth_candidates=1000,
+                                n_gaussian=15, white_bkgd=False),
+        lr=1e-4, w_vgg=0.1, vgg_spatch=64, w_antibias=1.0,
+        antibias_downsampling=3)
+
+
+def grads_of(model):
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def grad_errs(got, ref):
+    """Largest |Δ| of each parameter's gradient over the reference's norm
+    → (worst ratio, its name, parameters whose reference gradient is not
+    all zero); fails if every reference gradient is zero."""
+    worst, nonzero = (0.0, ""), 0
+    for n, g in ref.items():
+        norm = float(g.float().norm())
+        nonzero += norm > 0
+        diff = float((got[n].float().cpu() - g.float().cpu()).abs().max())
+        worst = max(worst, (diff / max(norm, 1e-30), n))
+    check(nonzero > 0, "every reference gradient is zero")
+    return worst + (nonzero,)
+
+
+def phase_train_path():
+    """Full-width production train steps through the port's entry points."""
+    from diner_tpu_torch.data.synthetic import make_sphere_scene
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.train.diner import (batch_to_device, create_model,
+                                             make_train_step)
+    cfg = dtu_train_config()
+    b = batch_to_device(make_sphere_scene(H=512, W=640, nv=4), "cuda")
+    t0 = time.perf_counter()
+    model = create_model(cfg, b, seed=0)
+    vgg = init_vgg19(0, device="cuda")
+    step = make_train_step(model, cfg, vgg)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the init weights, whose density create_model checked is alive
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: t.clone() for n, t in model.named_buffers()}
+
+    t1 = time.perf_counter()
+    metrics = step(b, generator=gen)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    grads = grads_of(model)
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "non-finite gradient in the first train step")
+    n_nonzero = sum(bool((g != 0).any()) for g in grads.values())
+    check(n_nonzero > 0, "every gradient of the first train step is zero")
+    moved = sum(not torch.equal(p.detach(), params0[n])
+                for n, p in model.named_parameters())
+    check(moved > 0, "no parameter changed in the first train step")
+    stats_moved = sum(not torch.equal(t, stats0[n])
+                      for n, t in model.named_buffers())
+    check(stats_moved == len(stats0) > 0,
+          f"{stats_moved} of {len(stats0)} BN statistics moved")
+    step(b, generator=gen)  # second warm-up step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite_cuda.launches = composite_cuda.bwd_launches = 0
+    times, losses, per_step, nonzero_per_step = [], [], [], []
+    for _ in range(5):
+        before = (composite_cuda.launches, composite_cuda.bwd_launches)
+        t2 = time.perf_counter()
+        metrics = step(b, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t2)
+        per_step.append((composite_cuda.launches - before[0],
+                         composite_cuda.bwd_launches - before[1]))
+        losses.append({k: float(v) for k, v in metrics.items()})
+        nonzero_per_step.append(sum(bool((g != 0).any())
+                                    for g in grads_of(model).values()))
+    launches = (composite_cuda.launches, composite_cuda.bwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(c == (1, 1) for c in per_step),
+          f"kernel A and B launches per step: {per_step}, expected (1, 1)")
+    check(all(np.isfinite(v) for m in losses for v in m.values()),
+          f"non-finite loss: {losses}")
+    check(sorted(losses[0]) == ["antibias", "rgb_fine", "total", "vgg_fine"],
+          f"metrics {sorted(losses[0])}")
+    s_step = statistics.median(times)
+    emit("train_path", config="DTU production train step, bf16, sphere "
+         "scene 512x640 nv=4, 64x64 patch", rays_per_step=cfg.rays_per_step,
+         steps_timed=len(times), launches_composite_fwd=launches[0],
+         launches_composite_bwd=launches[1], s_per_step=s_step,
+         s_per_step_all=times, rays_per_s=cfg.rays_per_step / s_step,
+         model_init_s=t_model, first_step_s=t_first,
+         time_to_first_step_s=t_model + t_first, peak_mem_bytes=peak,
+         params=len(grads), params_grad_nonzero=n_nonzero,
+         params_grad_nonzero_timed_steps=nonzero_per_step,
+         params_moved=moved, bn_stats_moved=stats_moved,
+         steps_taken=step.step, losses=losses)
+
+    profile_once("train_profile", lambda: step(b, generator=gen))
+    train_stage_times(model, cfg, b, vgg, step)
+    return launches, state0, vgg, b
+
+
+def train_stage_times(model, cfg, b, vgg, step):
+    """Device time of each layer of one production step (CUDA events,
+    median of warm runs); each backward takes a seeded random cotangent."""
+    from diner_tpu_torch.losses import antibias_loss, vgg_loss
+    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.ops.sampling import (fill_up_uniform,
+                                              sample_depthguided)
+    from diner_tpu_torch.renderer import draw_noise
+    from diner_tpu_torch.train.diner import (SRC_KEYS, select_pixels,
+                                             target_rays)
+    rc = cfg.renderer
+    g = torch.Generator(device="cuda").manual_seed(5)
+    src = [b[k] for k in SRC_KEYS]
+    H, W = b["target_rgb"].shape[1:3]
+    pix = select_pixels(cfg, b, g)
+    rays = torch.gather(target_rays(cfg, b, H, W), 1,
+                        pix[..., None].expand(-1, -1, 8))
+    NR, K = rays.shape[1], rc.n_samples
+    u_coarse, gauss, u_fill = draw_noise(rc, 1, NR, generator=g,
+                                         device="cuda")
+    with torch.no_grad():
+        ctx = model.encode(*src)
+    g_lat = torch.randn(ctx.latent.shape, generator=g, device="cuda"
+                        ).to(ctx.latent.dtype)
+
+    def encode_fb():
+        model.encode(*src).latent.backward(g_lat)
+
+    def sampler():
+        with torch.no_grad():
+            z = sample_depthguided(rays, ctx.view_maps(), K,
+                                   rc.n_depth_candidates, u_coarse, gauss,
+                                   rc.n_gaussian, rc.depth_diff_max)
+            return fill_up_uniform(z, rays, u_fill)
+
+    z = sampler()
+    pts = (rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]
+           ).reshape(1, -1, 3)
+    dirs = rays[..., None, 3:6].expand(1, NR, K, 3).reshape(1, -1, 3)
+    ctx_g = dataclasses.replace(ctx,
+                                latent=ctx.latent.detach().requires_grad_())
+    g_field = torch.randn((1, NR * K, 4), generator=g, device="cuda")
+
+    def field_fb():
+        model.field(ctx_g, pts, dirs).backward(g_field)
+
+    out = torch.rand((1, NR, K, 4), generator=g, device="cuda"
+                     ).requires_grad_()
+    g_rgb = torch.randn((1, NR, 3), generator=g, device="cuda")
+
+    def composite_fb():
+        o = composite_cuda.composite(out[..., :3], out[..., 3], z, rays,
+                                     rc.white_bkgd)
+        o.rgb.backward(g_rgb)
+
+    s = cfg.vgg_spatch
+    pred = torch.rand((1, s, s, 3), generator=g, device="cuda"
+                      ).requires_grad_()
+    gt = torch.rand((1, s, s, 3), generator=g, device="cuda")
+
+    def losses_fb():
+        loss = (cfg.w_vgg * vgg_loss(vgg, pred, gt, dtype=model.dtype)
+                + cfg.w_antibias * antibias_loss(pred, gt,
+                                                 cfg.antibias_downsampling))
+        loss.backward()
+
+    ms = {
+        "encode_fwd_bwd_ms": cuda_time_ms(encode_fb, 5, 1),
+        "sampler_ms": cuda_time_ms(sampler, 10, 2),
+        "field_fwd_bwd_ms": cuda_time_ms(field_fb, 5, 1),
+        "composite_a_b_ms": cuda_time_ms(composite_fb),
+        "vgg_antibias_fwd_bwd_ms": cuda_time_ms(losses_fb, 10, 2),
+        # last: it moves the weights (the grads are the last step's)
+        "adam_step_ms": cuda_time_ms(step.optimizer.step, 10, 2),
+    }
+    emit("train_stages", rays=NR, samples=K, **ms,
+         sum_ms=sum(ms.values()))
+
+
+def phase_train_grad_f32(state, vgg, b):
+    """One 1024-ray production step at f32 through kernels A and B and
+    through the plain composite (autograd of its tensor ops): same weights,
+    noise and pixels; the loss and every parameter's gradient compared."""
+    from diner_tpu_torch.models.pixelnerf import PixelNeRF
+    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.renderer import draw_noise
+    from diner_tpu_torch.train.diner import compute_losses, select_pixels
+    base = dtu_train_config()
+    cfg = dataclasses.replace(
+        base, vgg_spatch=32,
+        nerf=dataclasses.replace(base.nerf, compute_dtype="float32"))
+    m32 = PixelNeRF(cfg.nerf)
+    m32.load_state_dict(state)
+    m32.cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pix = select_pixels(cfg, b, g)
+    noise = draw_noise(cfg.renderer, 1, cfg.rays_per_step, generator=g,
+                       device="cuda")
+    res = {}
+    for impl in ("pallas", "torch"):
+        c = dataclasses.replace(cfg, renderer=dataclasses.replace(
+            cfg.renderer, composite_impl=impl))
+        m32.zero_grad(set_to_none=True)
+        composite_cuda.launches = composite_cuda.bwd_launches = 0
+        total, _ = compute_losses(m32, c, b, vgg, noise=noise, pix_idcs=pix)
+        total.backward()
+        torch.cuda.synchronize()
+        res[impl] = (total.item(),
+                     {n: t.clone() for n, t in grads_of(m32).items()},
+                     (composite_cuda.launches, composite_cuda.bwd_launches))
+    check(res["pallas"][2] == (1, 1) and res["torch"][2] == (0, 0),
+          f"launches kernel path {res['pallas'][2]}, plain {res['torch'][2]}")
+    loss_err = abs(res["pallas"][0] - res["torch"][0]) / abs(res["torch"][0])
+    worst, name, nonzero = grad_errs(res["pallas"][1], res["torch"][1])
+    emit("train_grad_f32", rays=cfg.rays_per_step,
+         loss_kernels=res["pallas"][0], loss_plain=res["torch"][0],
+         loss_rel_err=loss_err, worst_grad_err_over_norm=worst,
+         worst_param=name, params=len(res["torch"][1]),
+         params_grad_nonzero=nonzero, tol=1e-3)
+    # 1e-3 of the norm: the kernels sum in another order, and the latent's
+    # scatter-add and cuDNN's backward use atomics in a changing order
+    check(loss_err <= 1e-5 and worst <= 1e-3,
+          f"f32 step, kernels vs plain composite: loss {loss_err}, "
+          f"grad {worst} at {name}")
+
+
+def phase_train_small_reference():
+    """A small production step on the card against the same step on the
+    CPU: same weights, VGG, pixels and noise, f32."""
+    import copy
+
+    from diner_tpu_torch.data.synthetic import make_sphere_scene
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.models.pixelnerf import PixelNeRFConfig
+    from diner_tpu_torch.nn.spatial_encoder import SpatialEncoderConfig
+    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.renderer import RendererConfig, draw_noise
+    from diner_tpu_torch.train.diner import (DinerConfig, batch_to_device,
+                                             compute_losses, create_model,
+                                             select_pixels)
+    cfg = DinerConfig(
+        nerf=PixelNeRFConfig(encoder=SpatialEncoderConfig(
+            backbone="resnet18", num_layers=2, image_padding=8), d_hidden=32),
+        renderer=RendererConfig(n_samples=8, n_depth_candidates=64,
+                                n_gaussian=3, white_bkgd=False),
+        w_vgg=0.1, vgg_spatch=16, w_antibias=1.0)
+    batch = make_sphere_scene(H=32, W=40, nv=2)
+    cpu_model = create_model(cfg, batch, seed=0, device="cpu")
+    cpu_vgg = init_vgg19(0, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    b_cpu = batch_to_device(batch, "cpu")
+    pix = select_pixels(cfg, b_cpu, g)
+    noise = draw_noise(cfg.renderer, 1, cfg.rays_per_step, generator=g)
+    res = {}
+    for where, dev in (("cpu", "cpu"), ("card", "cuda")):
+        m = copy.deepcopy(cpu_model).to(dev)
+        composite_cuda.launches = composite_cuda.bwd_launches = 0
+        total, _ = compute_losses(
+            m, cfg, batch_to_device(batch, dev),
+            copy.deepcopy(cpu_vgg).to(dev), pix_idcs=pix.to(dev),
+            noise=tuple(t.to(dev) for t in noise))
+        total.backward()
+        res[where] = (total.item(), grads_of(m),
+                      (composite_cuda.launches, composite_cuda.bwd_launches))
+    check(res["card"][2] == (1, 1), f"card step launches {res['card'][2]}")
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    worst, name, nonzero = grad_errs(res["card"][1], res["cpu"][1])
+    emit("train_small_reference", rays=cfg.rays_per_step,
+         loss_card=res["card"][0], loss_cpu=res["cpu"][0],
+         loss_rel_err=loss_err, worst_grad_err_over_norm=worst,
+         worst_param=name, params=len(res["cpu"][1]),
+         params_grad_nonzero=nonzero, tol=1e-3)
+    # 1e-3 of the norm: convolutions, matmuls and scatter-adds sum in
+    # another order on the card, through the train-mode BN backward
+    check(loss_err <= 1e-4 and worst <= 1e-3,
+          f"card vs CPU step: loss {loss_err}, grad {worst} at {name}")
+
+
+def phase_gather_yardstick():
+    """``index_select`` (the library yardstick of the row gather, kernel C,
+    not yet ported) at its two hot shapes, with the gather's bound: the
+    table read once, int32 indices and the output written once. Indices
+    are uniform random rows, seeded."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases = (("sampler_map_c5_f32", 4 * 512 * 640, 5, torch.float32,
+              4096 * 1000 * 4),
+             ("latent_c512_bf16", 4 * 320 * 384, 512, torch.bfloat16,
+              4 * 4096 * 64 * 4))
+    for name, n_rows, C, dtype, P in cases:
+        table = torch.randn((n_rows, C), generator=g, device="cuda"
+                            ).to(dtype)
+        idx = torch.randint(0, n_rows, (P,), generator=g, device="cuda")
+        ms = cuda_time_ms(lambda: torch.index_select(table, 0, idx), 10, 2)
+        size = table.element_size()
+        n_bytes = n_rows * C * size + P * 4 + P * C * size
+        emit("gather_yardstick", case=name, table_rows=n_rows, C=C,
+             dtype=str(dtype), P=P, library_ms=ms,
+             bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+        del table, idx
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs an "
@@ -359,20 +750,40 @@ def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernel()
-    launches = phase_path()
+    bwd_rows = phase_kernel_bwd()
+    eval_fwd, eval_bwd = phase_path()
     phase_small_reference()
+    (train_fwd, train_bwd), state, vgg, b = phase_train_path()
+    phase_train_grad_f32(state, vgg, b)
+    del state, vgg, b
+    torch.cuda.empty_cache()
+    phase_train_small_reference()
+    phase_gather_yardstick()
 
-    main_row = next(r for r in rows if (r["R"], r["K"]) == (4096, 64))
-    kernels = [{
-        "name": "composite_fwd", "route": "cuda",
-        "source": "diner_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "diner_tpu/ops/pallas/composite_pallas.py:29",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]
+    def entry(name, row_list, main, replaces, by_path):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"diner_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in row_list),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+        }
+
+    kernels = [
+        entry("composite_fwd", rows,
+              next(r for r in rows if (r["R"], r["K"]) == (4096, 64)),
+              "diner_tpu/ops/pallas/composite_pallas.py:29",
+              {"eval_render": eval_fwd, "train_steps": train_fwd}),
+        # the train step's case: R = 4096, K = 40, only g_rgb
+        entry("composite_bwd", bwd_rows,
+              next(r for r in bwd_rows if "ms" in r
+                   and not r["g_depth_and_g_w"]),
+              "diner_tpu/ops/pallas/composite_pallas.py:54",
+              {"eval_render": eval_bwd, "train_steps": train_bwd}),
+    ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"phases": LOG, "kernels": kernels, "nvidia_smi": smi}, indent=1))

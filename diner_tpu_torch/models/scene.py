@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from diner_tpu_torch.ops.grid_sample import grid_sample_bilinear
+from diner_tpu_torch.ops.grid_sample import grid_sample_bilinear_imggrad
 from diner_tpu_torch.ops.sampling import ViewMaps
 
 
@@ -57,4 +57,6 @@ def index_latent(ctx: SceneContext, uv_ndc):
                          dtype=uv_ndc.dtype, device=uv_ndc.device)
     uv = (uv_ndc * scale).reshape(SB * NV, P, 2)
     latent = ctx.latent.reshape((SB * NV,) + tuple(ctx.latent.shape[2:]))
-    return grid_sample_bilinear(latent, uv, "border").reshape(SB, NV, P, -1)
+    # image-only VJP with f32 accumulation, as the JAX package's lookup
+    return grid_sample_bilinear_imggrad(latent, uv, "border").reshape(
+        SB, NV, P, -1)

@@ -9,7 +9,9 @@ Convolutions run in the compute dtype with f32 parameters cast at use.
 BatchNorm normalizes in f32 and casts its output back to the compute dtype
 (``diner_tpu/nn/resnet.py:36-44``), so bf16 activations do not turn f32
 after the first BN. ``train=True`` normalizes with batch statistics and
-does not update the running ones; ``train=False`` uses the running ones.
+updates the running ones only when ``update_stats=True`` (the train step,
+as flax's ``mutable=["batch_stats"]``); ``train=False`` uses the running
+ones.
 Parameter names follow the flax tree, so ``utils/convert.py`` maps it 1:1.
 """
 
@@ -27,6 +29,13 @@ STAGE_WIDTHS = (64, 128, 256, 512)
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to ±2
 
 
+def lecun_normal_(weight, generator):
+    """flax's ``lecun_normal`` for an (O, I, kH, kW) conv weight."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
 class Conv2d(nn.Module):
     """Bias-free convolution; weight (O, I, kH, kW), computed in ``dtype``."""
 
@@ -37,9 +46,7 @@ class Conv2d(nn.Module):
         self.stride, self.padding, self.dtype = stride, padding, dtype
 
     def reset_parameters(self, generator):
-        std = math.sqrt(1.0 / self.weight[0].numel()) / _TRUNC_STD
-        nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
+        lecun_normal_(self.weight, generator)
 
     def forward(self, x):
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
@@ -49,6 +56,8 @@ class Conv2d(nn.Module):
 class BatchNorm(nn.Module):
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` with
     the output cast to the compute dtype."""
+
+    momentum = 0.9
 
     def __init__(self, channels, dtype=torch.float32, eps=1e-5):
         super().__init__()
@@ -65,13 +74,21 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x, train: bool):
+    def forward(self, x, train: bool, update_stats: bool = False):
         # written out rather than F.batch_norm: batch statistics in two
-        # passes, whose sum order does not depend on the CPU thread split
+        # passes, whose sum order does not depend on the CPU thread split,
+        # and flax's running update with the biased batch variance
         x = x.float()
         if train:
             mean = x.mean(dim=(0, 2, 3), keepdim=True)
             var = (x - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+            if update_stats:
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean.flatten())
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var.flatten())
         else:
             mean = self.running_mean.view(1, -1, 1, 1)
             var = self.running_var.view(1, -1, 1, 1)
@@ -93,11 +110,12 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv2d(cin, width, 1, stride, 0, dtype)
             self.downsample_bn = BatchNorm(width, dtype)
 
-    def forward(self, x, train: bool):
-        y = torch.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
+    def forward(self, x, train: bool, update_stats: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train, update_stats))
+        y = self.bn2(self.conv2(y), train, update_stats)
         if self.has_downsample:
-            x = self.downsample_bn(self.downsample_conv(x), train)
+            x = self.downsample_bn(self.downsample_conv(x), train,
+                                   update_stats)
         return torch.relu(x + y)
 
 
@@ -123,14 +141,14 @@ class ResNetEncoder(nn.Module):
                 cin = STAGE_WIDTHS[stage]
             self.stages.append(names)
 
-    def forward(self, x, train: bool = True):
+    def forward(self, x, train: bool = True, update_stats: bool = False):
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels-last strides
-        x = torch.relu(self.bn1(self.conv1(x), train))
+        x = torch.relu(self.bn1(self.conv1(x), train, update_stats))
         latents = [x]
         for stage, names in enumerate(self.stages):
             if stage == 0 and self.use_first_pool:
                 x = F.max_pool2d(x, 3, 2, 1)  # pads with −inf, as flax
             for name in names:
-                x = getattr(self, name)(x, train)
+                x = getattr(self, name)(x, train, update_stats)
             latents.append(x)
         return [t.permute(0, 2, 3, 1) for t in latents]

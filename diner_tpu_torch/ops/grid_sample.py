@@ -1,4 +1,4 @@
-"""Point-wise grid sampling on channels-last images (forward only).
+"""Point-wise grid sampling on channels-last images.
 
 Port of ``diner_tpu/ops/grid_sample.py``: images are (N, H, W, C), queries
 (N, P, 2) normalized [x, y] in [-1, 1], ``align_corners=False`` unless
@@ -7,7 +7,8 @@ Exponential padding is analytic: no padded canvas is built.
 
 ``F.grid_sample`` is not used: it takes NCHW images, and its bilinear
 weights and border handling differ in rounding from the JAX package's.
-The custom image-only backward (``_gs_bilinear_bwd``) comes with training.
+``grid_sample_bilinear_imggrad`` carries the JAX package's hand-written
+image-only backward (``_gs_bilinear_bwd``).
 """
 
 from __future__ import annotations
@@ -99,6 +100,52 @@ def grid_sample_bilinear(img, uv, padding_mode: str = "border",
         term = _gather_pixels(img, ix, iy) * wgt[..., None].to(img.dtype)
         out = term if out is None else out + term
     return out
+
+
+class _BilinearImgGrad(torch.autograd.Function):
+    """Forward: :func:`grid_sample_bilinear`. Backward: scatter-add of
+    ``g · w_corner`` into an f32 (N·H·W, C) canvas, cast to the image
+    dtype once; no uv gradient."""
+
+    @staticmethod
+    def forward(ctx, img, uv, padding_mode, align_corners):
+        ctx.save_for_backward(uv)
+        ctx.img_shape, ctx.img_dtype = img.shape, img.dtype
+        ctx.padding_mode, ctx.align_corners = padding_mode, align_corners
+        return grid_sample_bilinear(img, uv, padding_mode, align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        uv, = ctx.saved_tensors
+        N, H, W, C = ctx.img_shape
+        base = (torch.arange(N, device=uv.device) * (H * W))[:, None]
+        acc = torch.zeros((N * H * W, C), dtype=torch.float32,
+                          device=g.device)
+        g32 = g.float()
+        for ix, iy, wgt in _bilinear_corners(ctx.img_shape, uv,
+                                             ctx.padding_mode,
+                                             ctx.align_corners):
+            idx = (base + iy * W + ix).reshape(-1)
+            acc.index_add_(0, idx, (g32 * wgt[..., None].float()
+                                    ).reshape(-1, C))
+        d_img = acc.reshape(N, H, W, C).to(ctx.img_dtype)
+        return d_img, None, None, None
+
+
+def grid_sample_bilinear_imggrad(img, uv, padding_mode: str = "border",
+                                 align_corners: bool = False):
+    """Bilinear point sampling with the JAX package's image-only VJP
+    (``diner_tpu/ops/grid_sample.py:189-269``).
+
+    Forward as :func:`grid_sample_bilinear`. The backward returns no uv
+    gradient (on the DINER path the coordinates come from the sampler,
+    which stops their gradient) and accumulates the image gradient in f32,
+    so a bf16 latent's gradient is summed in f32 and rounded once, where
+    autograd of the row gather would sum it in bf16. The JAX package's
+    channels-major branch for C ≤ 32 is a TPU layout choice with the same
+    values and has no counterpart here.
+    """
+    return _BilinearImgGrad.apply(img, uv, padding_mode, align_corners)
 
 
 def exponential_pad_mult(ix, iy, H, W, pad_size, double_width, dtype):

@@ -7,10 +7,13 @@ passed in pre-drawn, as ``(u_coarse, gauss, u_fill)`` with the shapes of
 ``renderer.py:78-84`` in the JAX package, or drawn from a
 ``torch.Generator``.
 
-Compositing: on a CUDA tensor both ``composite_impl`` values of the JAX
-package ("xla", "pallas") launch the CUDA kernel; on the CPU they run the
-plain version. "torch" runs the plain version on any device, as the
-reference a kernel is checked against.
+Gradients flow through the field and the compositing; the sampler and the
+fill-up run under ``torch.no_grad()``, as the JAX package stops their
+gradient. Compositing: on a CUDA tensor both ``composite_impl`` values of
+the JAX package ("xla", "pallas") run kernels A and B (forward and
+backward); on the CPU they run the plain versions. "torch" runs the plain
+forward, differentiated by autograd, on any device: the reference the
+kernels are checked against.
 """
 
 from __future__ import annotations
@@ -78,10 +81,11 @@ def render_rays(field_fn: FieldFn, ctx: SceneContext, rays,
         noise = draw_noise(cfg, SB, NR, generator, rays.device, rays.dtype)
     u_coarse, gauss, u_fill = noise
 
-    z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
-                           cfg.n_depth_candidates, u_coarse, gauss,
-                           cfg.n_gaussian, cfg.depth_diff_max)
-    z = fill_up_uniform(z, rays, u_fill)  # (SB, NR, K) ascending
+    with torch.no_grad():
+        z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
+                               cfg.n_depth_candidates, u_coarse, gauss,
+                               cfg.n_gaussian, cfg.depth_diff_max)
+        z = fill_up_uniform(z, rays, u_fill)  # (SB, NR, K) ascending
 
     K = cfg.n_samples
     points = rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]

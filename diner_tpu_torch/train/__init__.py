@@ -1,1 +1,1 @@
-"""Model construction and the eval step (training comes later)."""
+"""Model construction, the train step and the eval step."""

@@ -2,8 +2,10 @@
 
 The inverse of the layout rules of ``diner_tpu/utils/torch_convert.py``.
 Input is ``{"params": tree, "batch_stats": tree}`` as nested dicts of numpy
-arrays (``jax.tree_util.tree_map(np.asarray, variables)``); the port's
-modules carry the flax names, so a path maps to a dotted key 1:1:
+arrays (``jax.tree_util.tree_map(np.asarray, variables)``): a PixelNeRF's
+variables, or ``{"params": init_vgg19_params(seed)}`` for the VGG19 of the
+perceptual loss (``conv_{idx}/kernel|bias``). The port's modules carry the
+flax names, so a path maps to a dotted key 1:1:
 
   conv kernel (kH, kW, I, O) → ``weight`` (O, I, kH, kW)
   dense kernel (I, O)        → ``weight`` (O, I)

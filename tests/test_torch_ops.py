@@ -6,7 +6,14 @@ for f32 elementwise math and gathers; the sampler's discrete choices (the
 top-k shortlist, the ``<`` masks and the nearest-texel rounding) must agree
 exactly on the sphere scene, so its z values are compared at 1e-5 too.
 The composite is held against both ``composite`` and the Pallas kernel in
-interpret mode, on the cases of ``tests/test_pallas_composite.py``.
+interpret mode, on the cases of ``tests/test_pallas_composite.py``; so is
+its gradient (the plain ``composite_bwd`` and the autograd Function that
+runs it on the CPU), at 1e-5 absolute plus 1e-5 of the largest gradient:
+the suffix sums run in another order than autodiff's. The image-only
+backward of the bilinear lookup is held against the JAX custom VJP at
+1e-5 (f32: the same f32 scatter-adds) and one bf16 ulp (bf16: the f32 sum
+is rounded once, where the two sums may fall on either side of a rounding
+boundary).
 """
 
 import numpy as np
@@ -132,6 +139,111 @@ def test_composite_wrapper_runs_plain_version_on_cpu():
     assert composite_cuda.launches == before
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _jax_composite_grads(fn, rgb, sigma, z, rays, white):
+    """(d_rgb, d_sigma) of the loss of ``tests/test_pallas_composite.py``
+    through the JAX composite ``fn``."""
+    def loss(rgb_, sigma_):
+        o = fn(rgb_, sigma_, jnp.asarray(z), jnp.asarray(rays), white)
+        return (jnp.sum(o.rgb * jnp.cos(o.rgb)) + jnp.sum(o.depth * 0.7)
+                + jnp.sum(o.weights ** 2))
+    return jax.grad(loss, argnums=(0, 1))(jnp.asarray(rgb),
+                                          jnp.asarray(sigma))
+
+
+def _grad_close(a, b):
+    b = np.asarray(b)
+    np.testing.assert_allclose(np.asarray(a), b,
+                               atol=1e-5 + 1e-5 * np.abs(b).max(), rtol=0)
+
+
+_JAX_COMPOSITES = {
+    "xla": lambda *a: jcomp.composite(*a[:4], white_bkgd=a[4]),
+    "pallas": lambda *a: composite_pallas(*a[:4], white_bkgd=a[4],
+                                          interpret=True),
+}
+
+
+@pytest.mark.parametrize("ref", sorted(_JAX_COMPOSITES))
+@pytest.mark.parametrize("seed,SB,B,K,white", [
+    (1, 1, 19, 9, False), (1, 1, 19, 9, True), (2, 1, 130, 5, True),
+    (3, 2, 37, 12, False)])
+def test_composite_bwd_matches_jax_grad(ref, seed, SB, B, K, white):
+    rgb, sigma, z, rays = _comp_case(seed, SB, B, K)
+    j_rgb, j_sigma = _jax_composite_grads(_JAX_COMPOSITES[ref], rgb, sigma,
+                                          z, rays, white)
+    # the plain VJP, fed the loss's cotangents
+    fwd = tcomp.composite(_t(rgb), _t(sigma), _t(z), _t(rays), white)
+    g_rgb = torch.cos(fwd.rgb) - fwd.rgb * torch.sin(fwd.rgb)
+    g_depth = torch.full_like(fwd.depth, 0.7)
+    d_rgb, d_sigma = tcomp.composite_bwd(
+        _t(rgb), _t(sigma), _t(z), _t(rays)[..., 7], g_rgb, g_depth,
+        2 * fwd.weights, white)
+    _grad_close(d_rgb, j_rgb)
+    _grad_close(d_sigma, j_sigma)
+    # the autograd Function that runs it on the CPU
+    rgb_t = _t(rgb).requires_grad_()
+    sigma_t = _t(sigma).requires_grad_()
+    before = (composite_cuda.launches, composite_cuda.bwd_launches)
+    o = composite_cuda.composite(rgb_t, sigma_t, _t(z), _t(rays), white)
+    (torch.sum(o.rgb * torch.cos(o.rgb)) + torch.sum(o.depth * 0.7)
+     + torch.sum(o.weights ** 2)).backward()
+    assert (composite_cuda.launches, composite_cuda.bwd_launches) == before
+    _grad_close(rgb_t.grad, j_rgb)
+    _grad_close(sigma_t.grad, j_sigma)
+
+
+def test_composite_function_takes_missing_cotangents_as_zero():
+    # the train step reads only rgb: depth and weights hand no cotangent
+    rgb, sigma, z, rays = _comp_case(4, 1, 50, 7)
+    packed = _t(np.concatenate([rgb, sigma[..., None]], -1)).requires_grad_()
+    o = composite_cuda.composite(packed[..., :3], packed[..., 3], _t(z),
+                                 _t(rays), False)
+    (o.rgb ** 2).sum().backward()
+    j_rgb, j_sigma = jax.grad(
+        lambda r, s: jnp.sum(jcomp.composite(r, s, jnp.asarray(z),
+                                             jnp.asarray(rays)).rgb ** 2),
+        argnums=(0, 1))(jnp.asarray(rgb), jnp.asarray(sigma))
+    _grad_close(packed.grad[..., :3], j_rgb)
+    _grad_close(packed.grad[..., 3], j_sigma)
+    # a z that requires grad gets none, as in composite_pallas
+    z_t = _t(z).requires_grad_()
+    o = composite_cuda.composite(_t(rgb), _t(sigma).requires_grad_(), z_t,
+                                 _t(rays), False)
+    o.depth.sum().backward()
+    assert z_t.grad is None
+
+
+@pytest.mark.parametrize("C", [8, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_grid_sample_bilinear_imggrad_backward(C, dtype, mode):
+    img, uv = _img_uv(11, C=C, P=400)
+    rng = np.random.default_rng(12)
+    g = rng.normal(0, 1, (2, 400, C)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    j_img = jnp.asarray(img).astype(jdt)
+    j_out, vjp = jax.vjp(lambda im, u: jgs.grid_sample_bilinear_imggrad(
+        im, u, mode), j_img, jnp.asarray(uv))
+    j_dimg, j_duv = vjp(jnp.asarray(g).astype(jdt))
+    assert float(jnp.abs(j_duv).max()) == 0.0
+
+    tdt = getattr(torch, dtype)
+    t_img = _t(img).to(tdt).requires_grad_()
+    t_uv = _t(uv).requires_grad_()
+    out = tgs.grid_sample_bilinear_imggrad(t_img, t_uv, mode)
+    assert out.dtype == tdt  # the same products summed in the same order
+    np.testing.assert_array_equal(out.detach().float().numpy(),
+                                  np.asarray(j_out.astype(jnp.float32)))
+    out.backward(_t(g).to(tdt))
+    assert t_img.grad.dtype == tdt and t_uv.grad is None
+    ref = np.asarray(j_dimg.astype(jnp.float32))
+    got = t_img.grad.float().numpy()
+    if dtype == "float32":
+        _close(got, ref)
+    else:  # one bf16 ulp (2^-7 relative)
+        np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=1e-6)
 
 
 # ------------------------------------------------------------------- sampling

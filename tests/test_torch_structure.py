@@ -1,8 +1,8 @@
 """Structure of the PyTorch port: it imports no JAX and nothing of the JAX
-package, its entry points default to the GPU, and the compositing kernel
-is held against its plain version on a card (tests marked ``cuda``, which
-skip without one; ``chip_smoke.py`` runs the same comparison at the eval
-path's shapes)."""
+package, its entry points default to the GPU, and the compositing kernels
+(A forward, B backward) are held against their plain versions on a card
+(tests marked ``cuda``, which skip without one; ``chip_smoke.py`` runs the
+same comparisons at the eval and training paths' shapes)."""
 
 import ast
 import pkgutil
@@ -17,6 +17,7 @@ import torch
 import diner_tpu_torch
 from diner_tpu_torch.data.synthetic import make_sphere_scene
 from diner_tpu_torch.device import resolve_device
+from diner_tpu_torch.losses import init_vgg19
 from diner_tpu_torch.ops import composite as plain
 from diner_tpu_torch.ops import composite_cuda, cuda_build
 from diner_tpu_torch.train.diner import DinerConfig, create_model
@@ -73,14 +74,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_model(DinerConfig(), make_sphere_scene(H=8, W=8, nv=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_vgg19()
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_kernel_build_goes_to_ignored_build_dir():
-    path = cuda_build.library_path("composite_fwd")
-    assert path.parent == ROOT / "build" / "kernels"
+    assert sorted(cuda_build.SOURCES) == ["composite_bwd", "composite_fwd"]
+    for name, src in cuda_build.SOURCES.items():
+        path = cuda_build.library_path(name)
+        assert path.parent == ROOT / "build" / "kernels"
+        assert (cuda_build.PKG_DIR / src).exists()
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert (cuda_build.PKG_DIR / cuda_build.SOURCES["composite_fwd"]).exists()
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
@@ -91,6 +96,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                         torch.zeros(1, 4, 8))
     with pytest.raises(ValueError, match="shapes"):
         composite_cuda.composite_kernel(x, x[..., 0], x, torch.zeros(1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        composite_cuda.composite_bwd_kernel(
+            torch.zeros(1, 4, 3, 3), x, x, torch.zeros(1, 4, 8),
+            torch.zeros(1, 4, 3))
 
 
 # ------------------------------------------------------------- on the card
@@ -129,12 +138,58 @@ def test_kernel_matches_plain_version(cuda, R, K, white):
                                    atol=1e-5, rtol=0)
 
 
+def _cotangents(R, K, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [t.to(device) for t in (torch.randn((1, R, 3), generator=g),
+                                   torch.randn((1, R), generator=g),
+                                   torch.randn((1, R, K), generator=g))]
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_grad_and_foreign_layouts(cuda):
+@pytest.mark.parametrize("R,K", [(4096, 40), (4096, 64), (4097, 40)])
+@pytest.mark.parametrize("white", [False, True])
+@pytest.mark.parametrize("with_g_w", [False, True])
+def test_bwd_kernel_matches_plain_version(cuda, R, K, white, with_g_w):
+    out, z, rays = _field_case(R, K, R + K, cuda)
+    g_rgb, g_depth, g_w = _cotangents(R, K, K, cuda)
+    if not with_g_w:  # as in the train step: only the rgb output is read
+        g_depth = g_w = None
+    before = composite_cuda.bwd_launches
+    got = composite_cuda.composite_bwd_kernel(
+        out[..., :3], out[..., 3], z, rays, g_rgb, g_depth, g_w, white)
+    torch.cuda.synchronize()
+    assert composite_cuda.bwd_launches == before + 1
+    ref = plain.composite_bwd(out[..., :3], out[..., 3], z, rays[..., 7],
+                              g_rgb, g_depth, g_w, white)
+    # d_rgb 1e-5 absolute; d_sigma 1e-4 of its largest value (the suffix
+    # is total − prefix here, a reverse sum in the plain version)
+    np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(),
+                               atol=1e-5, rtol=0)
+    scale = float(ref[1].abs().max())
+    np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].cpu().numpy(),
+                               atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_composite_function_runs_kernels_a_and_b(cuda):
+    out, z, rays = _field_case(256, 40, 7, cuda)
+    out.requires_grad_()
+    before = (composite_cuda.launches, composite_cuda.bwd_launches)
+    o = composite_cuda.composite(out[..., :3], out[..., 3], z, rays)
+    (o.rgb ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (composite_cuda.launches, composite_cuda.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = out.detach().clone().requires_grad_()
+    r = plain.composite(ref[..., :3], ref[..., 3], z, rays)
+    (r.rgb ** 2).sum().backward()
+    np.testing.assert_allclose(out.grad.cpu().numpy(),
+                               ref.grad.cpu().numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_foreign_layouts(cuda):
     out, z, rays = _field_case(64, 8, 0, cuda)
-    with pytest.raises(NotImplementedError):
-        composite_cuda.composite(out[..., :3].clone().requires_grad_(),
-                                 out[..., 3], z, rays)
     out2, rays2 = out.reshape(2, 32, 8, 4), rays.reshape(2, 32, 8)
     z2 = z.reshape(32, 2, 8).transpose(0, 1)  # (2, 32, 8), rays not mergeable
     with pytest.raises(ValueError, match="without a copy"):
