@@ -2,10 +2,10 @@
 """Chip smoke run of the PyTorch port (``diner_tpu_torch``) on one NVIDIA GPU.
 
 Builds every CUDA kernel of the port from the sources in this checkout
-(kernel A, the compositing forward; kernel B, its backward), holds each
-against its plain PyTorch version on the card, then drives the port's two
-paths through its entry points, with the launch counts set to 0 just
-before each and read just after:
+(kernel A, the compositing forward; kernel B, its backward; kernel C, the
+row gather), holds each against its plain PyTorch version on the card, then
+drives the port's paths through its entry points, with the launch counts
+set to 0 just before each and read just after:
 
 - eval: a seeded DINER at the DTU eval protocol (4 source views at
   512×640, ResNet34 encoder with a 64 px PE ring, 512-wide ResnetFC, 64
@@ -14,18 +14,25 @@ before each and read just after:
   sphere scene. Checks: launch counts, outputs, a 1024-ray f32 crop
   through the kernel and through the plain composite, and a small render
   on the card against the same render on the CPU.
+- eval through the pair table: the same render with the latent's x-pair
+  table attached (``ctx.with_latent_pairs()``) and the same noise; its rgb
+  and depth must equal the eval render's bit for bit.
+- eval with the pruned sampler: the same model and image with
+  ``n_coarse_candidates=125, n_refine_bins=16``.
 - training: the production step of ``bench.py:73-93`` (the same model, 40
   samples from 1000 candidates with 15 Gaussian resamples, a 64×64
   foreground patch of 4096 rays, MSE + 0.1·VGG19 + 1.0·antibias, Adam at
-  lr 1e-4) takes 2 warm-up and 5 timed steps. Checks: kernels A and B
-  once per step, finite losses and gradients, parameters and BN running
-  statistics moved, a 1024-ray f32 step through the kernels against the
-  same step through the plain composite, and a small step on the card
-  against the same step on the CPU.
+  lr 1e-4) takes 2 warm-up and 5 timed steps, with the one-stage sampler
+  and with the pruned one (``pruned=True``, the JAX package's headline
+  step). Checks: kernels A and B once per step and kernel C 6 (7 pruned)
+  times, finite losses and gradients, parameters and BN running statistics
+  moved, a 1024-ray f32 step through the kernels against the same step
+  through the plain composite, and small steps on the card against the
+  same steps on the CPU.
 
-Profiler passes and per-layer CUDA-event timings of both paths say where
-the time goes; ``index_select`` is timed at the two hot shapes of the
-not-yet-ported row gather (kernel C) as its yardstick.
+Profiler passes and per-layer CUDA-event timings say where the time goes;
+kernel C is timed against ``table[idx]`` and ``index_select`` at the
+path's shapes with random rows, and at the indices one real chunk hands it.
 
 Each phase prints one JSON line; any failed check exits nonzero. The last
 three lines are the kernel table, the card's name and power limit as
@@ -53,6 +60,7 @@ COMPOSITE_FLOPS_PER_SAMPLE = 17  # delta, alpha (exp as 1), w, 4 sums, T
 # kernel B: two recomputes of delta, alpha, w, T and dL/dw (2 × 16), the
 # running sums (4), then dL/dalpha, d_sigma and d_rgb (14)
 COMPOSITE_BWD_FLOPS_PER_SAMPLE = 50
+PRUNED = dict(n_coarse_candidates=125, n_refine_bins=16)  # bench.py:84-85
 LOG = []
 
 
@@ -231,7 +239,7 @@ def dtu_eval_config():
 
 def phase_path():
     from diner_tpu_torch.data.synthetic import make_sphere_scene
-    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train.diner import create_model, make_eval_step
     H, W = 512, 640
     cfg = dtu_eval_config()
@@ -245,36 +253,37 @@ def phase_path():
     step = make_eval_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    composite_cuda.launches = 0
+    composite_cuda.launches = gather_cuda.launches = 0
     t1 = time.perf_counter()
     rgb, depth = step(batch, generator=gen)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
-    launches_first = composite_cuda.launches
-    check(launches_first == n_chunks,
-          f"first render launched the kernel {launches_first} times, "
-          f"expected {n_chunks}")
+    launches_first = (composite_cuda.launches, gather_cuda.launches)
+    check(launches_first == (n_chunks, 6 * n_chunks),
+          f"first render launched kernels A and C {launches_first} times, "
+          f"expected ({n_chunks}, {6 * n_chunks})")
 
     torch.cuda.reset_peak_memory_stats()
     composite_cuda.launches = composite_cuda.bwd_launches = 0
+    gather_cuda.launches = 0
+    gen.manual_seed(1)  # path_pairs renders with the same noise
     t2 = time.perf_counter()
     rgb, depth = step(batch, generator=gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t2
-    launches = (composite_cuda.launches, composite_cuda.bwd_launches)
+    launches = (composite_cuda.launches, composite_cuda.bwd_launches,
+                gather_cuda.launches)
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0),
-          f"warm render launched kernels A and B {launches} times, "
-          f"expected ({n_chunks}, 0)")
-    check(rgb.shape == (1, H, W, 3) and depth.shape == (1, H, W),
-          f"output shapes {tuple(rgb.shape)} {tuple(depth.shape)}")
-    check(bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all()),
-          "non-finite rgb or depth")
+    check(launches == (n_chunks, 0, 6 * n_chunks),
+          f"warm render launched kernels A, B and C {launches} times, "
+          f"expected ({n_chunks}, 0, {6 * n_chunks})")
+    check_image(rgb, depth, H, W)
     hit = float((depth > 0).float().mean())
-    check(hit > 0, "no ray has depth > 0")
     emit("path", config="DTU eval protocol, bf16, sphere scene 512x640 nv=4",
          chunks=n_chunks, launches=launches[0], launches_bwd=launches[1],
-         launches_first_render=launches_first,
+         launches_row_gather=launches[2],
+         launches_first_render=launches_first[0],
+         launches_row_gather_first_render=launches_first[1],
          model_init_s=t_model, first_image_s=t_first,
          time_to_first_image_s=t_model + t_first, warm_s_per_image=t_warm,
          peak_mem_bytes=peak, share_depth_gt0=hit,
@@ -282,7 +291,119 @@ def phase_path():
 
     profile_once("profile", lambda: step(batch, generator=gen))
     stage_times(model, cfg, batch, H, W)
+    gather_path(model, cfg, batch, H, W)
     crop_check(model, cfg, batch, H, W)
+    return launches, dict(model=model, cfg=cfg, batch=batch, rgb=rgb,
+                          depth=depth, model_init_s=t_model)
+
+
+def check_image(rgb, depth, H, W):
+    check(rgb.shape == (1, H, W, 3) and depth.shape == (1, H, W),
+          f"output shapes {tuple(rgb.shape)} {tuple(depth.shape)}")
+    check(bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all()),
+          "non-finite rgb or depth")
+    check(float((depth > 0).float().mean()) > 0, "no ray has depth > 0")
+
+
+def phase_path_pairs(ev):
+    """The eval render with the latent's pair table attached after the
+    encode, as ``scripts/eval_render_bench.py``'s pair-table arm opts in,
+    with the noise of the eval render's warm run: rgb and depth must equal
+    it bit for bit."""
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    from diner_tpu_torch.renderer import render_rays_chunked
+    from diner_tpu_torch.train.diner import (SRC_KEYS, batch_to_device,
+                                             target_rays)
+    model, cfg, batch = ev["model"], ev["cfg"], ev["batch"]
+    H, W = batch["target_rgb"].shape[1:3]
+    n_chunks = -(-H * W // cfg.renderer.ray_chunk)
+
+    @torch.no_grad()
+    def render(gen):
+        b = batch_to_device(batch, "cuda")
+        ctx = model.encode(*(b[k] for k in SRC_KEYS)).with_latent_pairs()
+        out = render_rays_chunked(model.field, ctx, target_rays(cfg, b, H, W),
+                                  cfg.renderer, generator=gen)
+        return out.rgb.reshape(1, H, W, 3), out.depth.reshape(1, H, W)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t1 = time.perf_counter()
+    render(gen)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    composite_cuda.launches = composite_cuda.bwd_launches = 0
+    gather_cuda.launches = 0
+    gen.manual_seed(1)
+    t2 = time.perf_counter()
+    rgb, depth = render(gen)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t2
+    launches = (composite_cuda.launches, composite_cuda.bwd_launches,
+                gather_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == (n_chunks, 0, 4 * n_chunks),
+          f"pair-table render launched kernels A, B and C {launches} times, "
+          f"expected ({n_chunks}, 0, {4 * n_chunks})")
+    check_image(rgb, depth, H, W)
+    same = torch.equal(rgb, ev["rgb"]) and torch.equal(depth, ev["depth"])
+    emit("path_pairs", config="DTU eval protocol through ctx."
+         "with_latent_pairs(), same noise as path", chunks=n_chunks,
+         launches=launches[0], launches_bwd=launches[1],
+         launches_row_gather=launches[2], first_image_s=t_first,
+         warm_s_per_image=t_warm, peak_mem_bytes=peak,
+         bit_identical_to_path=same,
+         max_abs_diff_rgb=float((rgb - ev["rgb"]).abs().max()),
+         max_abs_diff_depth=float((depth - ev["depth"]).abs().max()))
+    check(same, "pair-table render differs from the 4-corner render")
+    return launches
+
+
+def phase_path_pruned(ev):
+    """The eval render with the pruned two-stage sampler
+    (``eval_render_bench.py``'s arm ``(4096, pairs=False, pruned=True)``)
+    on the eval path's model; the warm render takes the eval render's
+    noise, so their difference is the sampler's."""
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    from diner_tpu_torch.train.diner import make_eval_step
+    model, batch = ev["model"], ev["batch"]
+    cfg = dataclasses.replace(ev["cfg"], renderer=dataclasses.replace(
+        ev["cfg"].renderer, **PRUNED))
+    H, W = batch["target_rgb"].shape[1:3]
+    n_chunks = -(-H * W // cfg.renderer.ray_chunk)
+    step = make_eval_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t1 = time.perf_counter()
+    step(batch, generator=gen)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    composite_cuda.launches = composite_cuda.bwd_launches = 0
+    gather_cuda.launches = 0
+    gen.manual_seed(1)
+    t2 = time.perf_counter()
+    rgb, depth = step(batch, generator=gen)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t2
+    launches = (composite_cuda.launches, composite_cuda.bwd_launches,
+                gather_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == (n_chunks, 0, 7 * n_chunks),
+          f"pruned render launched kernels A, B and C {launches} times, "
+          f"expected ({n_chunks}, 0, {7 * n_chunks})")
+    check_image(rgb, depth, H, W)
+    mse = float(((rgb.float() - ev["rgb"].float()) ** 2).mean())
+    emit("path_pruned", config="DTU eval protocol, pruned sampler "
+         "(125 coarse bins, 16 refined), bf16, sphere scene 512x640 nv=4",
+         chunks=n_chunks, launches=launches[0], launches_bwd=launches[1],
+         launches_row_gather=launches[2], first_image_s=t_first,
+         time_to_first_image_s=ev["model_init_s"] + t_first,
+         warm_s_per_image=t_warm, peak_mem_bytes=peak,
+         share_depth_gt0=float((depth > 0).float().mean()),
+         psnr_vs_one_stage_db=(10 * np.log10(1.0 / mse) if mse > 0
+                               else float("inf")),
+         share_pixels_equal_to_one_stage=float(
+             (rgb == ev["rgb"]).all(-1).float().mean()))
     return launches
 
 
@@ -322,7 +443,8 @@ def stage_times(model, cfg, batch, H, W):
     through the middle of the image (CUDA events, median of warm runs)."""
     from diner_tpu_torch.ops import composite_cuda
     from diner_tpu_torch.ops.sampling import (fill_up_uniform,
-                                              sample_depthguided)
+                                              sample_depthguided,
+                                              sample_depthguided_pruned)
     from diner_tpu_torch.renderer import draw_noise
     from diner_tpu_torch.train.diner import (SRC_KEYS, target_rays,
                                              batch_to_device)
@@ -345,6 +467,13 @@ def stage_times(model, cfg, batch, H, W):
                                    rc.n_gaussian, rc.depth_diff_max)
             return fill_up_uniform(z, rays, u_fill)
 
+        def sampler_pruned():
+            z = sample_depthguided_pruned(
+                rays, views, rc.n_samples, rc.n_depth_candidates,
+                PRUNED["n_coarse_candidates"], PRUNED["n_refine_bins"],
+                u_coarse, gauss, rc.n_gaussian, rc.depth_diff_max)
+            return fill_up_uniform(z, rays, u_fill)
+
         z = sampler()
         pts = (rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]
                ).reshape(1, -1, 3)
@@ -352,11 +481,17 @@ def stage_times(model, cfg, batch, H, W):
                                            3).reshape(1, -1, 3)
         out = model.field(ctx, pts, dirs).reshape(1, rc.ray_chunk,
                                                   rc.n_samples, 4)
+        ctx_pairs = ctx.with_latent_pairs()
         ms = {
             "encode_ms": cuda_time_ms(lambda: model.encode(*src), 5, 1),
             "sampler_ms": cuda_time_ms(sampler, 10, 2),
+            "sampler_pruned_ms": cuda_time_ms(sampler_pruned, 10, 2),
             "field_ms": cuda_time_ms(lambda: model.field(ctx, pts, dirs),
                                      10, 2),
+            "pair_table_build_ms": cuda_time_ms(
+                lambda: ctx.with_latent_pairs(), 5, 1),
+            "field_pairs_ms": cuda_time_ms(
+                lambda: model.field(ctx_pairs, pts, dirs), 10, 2),
             "composite_ms": cuda_time_ms(lambda: composite_cuda.composite(
                 out[..., :3], out[..., 3], z, rays, rc.white_bkgd)),
         }
@@ -426,16 +561,17 @@ def phase_small_reference():
     check(share >= 0.99, f"card vs CPU render: {share} of pixels within 1e-4")
 
 
-def dtu_train_config():
+def dtu_train_config(pruned=False):
     """The production training recipe of ``bench.py:73-93``
-    (``production=True, pruned=False``; reference
-    ``configs/train_dtu.yaml``)."""
+    (``production=True``; reference ``configs/train_dtu.yaml``);
+    ``pruned=True`` is the JAX package's headline step."""
     from diner_tpu_torch.renderer import RendererConfig
     eval_cfg = dtu_eval_config()
     return dataclasses.replace(
         eval_cfg,
         renderer=RendererConfig(n_samples=40, n_depth_candidates=1000,
-                                n_gaussian=15, white_bkgd=False),
+                                n_gaussian=15, white_bkgd=False,
+                                **(PRUNED if pruned else {})),
         lr=1e-4, w_vgg=0.1, vgg_spatch=64, w_antibias=1.0,
         antibias_downsampling=3)
 
@@ -458,14 +594,16 @@ def grad_errs(got, ref):
     return worst + (nonzero,)
 
 
-def phase_train_path():
-    """Full-width production train steps through the port's entry points."""
+def phase_train_path(pruned=False):
+    """Full-width production train steps through the port's entry points,
+    with the one-stage or the pruned sampler."""
     from diner_tpu_torch.data.synthetic import make_sphere_scene
     from diner_tpu_torch.losses import init_vgg19
-    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train.diner import (batch_to_device, create_model,
                                              make_train_step)
-    cfg = dtu_train_config()
+    cfg = dtu_train_config(pruned)
+    n_gathers = 7 if pruned else 6
     b = batch_to_device(make_sphere_scene(H=512, W=640, nv=4), "cuda")
     t0 = time.perf_counter()
     model = create_model(cfg, b, seed=0)
@@ -497,34 +635,43 @@ def phase_train_path():
           f"{stats_moved} of {len(stats0)} BN statistics moved")
     step(b, generator=gen)  # second warm-up step
 
+    def counts():
+        return (composite_cuda.launches, composite_cuda.bwd_launches,
+                gather_cuda.launches)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     composite_cuda.launches = composite_cuda.bwd_launches = 0
+    gather_cuda.launches = 0
     times, losses, per_step, nonzero_per_step = [], [], [], []
     for _ in range(5):
-        before = (composite_cuda.launches, composite_cuda.bwd_launches)
+        before = counts()
         t2 = time.perf_counter()
         metrics = step(b, generator=gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t2)
-        per_step.append((composite_cuda.launches - before[0],
-                         composite_cuda.bwd_launches - before[1]))
+        per_step.append(tuple(a - c for a, c in zip(counts(), before)))
         losses.append({k: float(v) for k, v in metrics.items()})
         nonzero_per_step.append(sum(bool((g != 0).any())
                                     for g in grads_of(model).values()))
-    launches = (composite_cuda.launches, composite_cuda.bwd_launches)
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(c == (1, 1) for c in per_step),
-          f"kernel A and B launches per step: {per_step}, expected (1, 1)")
+    check(all(c == (1, 1, n_gathers) for c in per_step),
+          f"kernel A, B and C launches per step: {per_step}, expected "
+          f"(1, 1, {n_gathers})")
     check(all(np.isfinite(v) for m in losses for v in m.values()),
           f"non-finite loss: {losses}")
     check(sorted(losses[0]) == ["antibias", "rgb_fine", "total", "vgg_fine"],
           f"metrics {sorted(losses[0])}")
     s_step = statistics.median(times)
-    emit("train_path", config="DTU production train step, bf16, sphere "
-         "scene 512x640 nv=4, 64x64 patch", rays_per_step=cfg.rays_per_step,
+    emit("train_path_pruned" if pruned else "train_path",
+         config="DTU production train step, bf16, sphere scene 512x640 "
+         "nv=4, 64x64 patch" + (", pruned sampler (125 coarse bins, 16 "
+                                "refined)" if pruned else ""),
+         rays_per_step=cfg.rays_per_step,
          steps_timed=len(times), launches_composite_fwd=launches[0],
-         launches_composite_bwd=launches[1], s_per_step=s_step,
+         launches_composite_bwd=launches[1],
+         launches_row_gather=launches[2], s_per_step=s_step,
          s_per_step_all=times, rays_per_s=cfg.rays_per_step / s_step,
          model_init_s=t_model, first_step_s=t_first,
          time_to_first_step_s=t_model + t_first, peak_mem_bytes=peak,
@@ -533,8 +680,10 @@ def phase_train_path():
          params_moved=moved, bn_stats_moved=stats_moved,
          steps_taken=step.step, losses=losses)
 
-    profile_once("train_profile", lambda: step(b, generator=gen))
-    train_stage_times(model, cfg, b, vgg, step)
+    profile_once("train_pruned_profile" if pruned else "train_profile",
+                 lambda: step(b, generator=gen))
+    if not pruned:
+        train_stage_times(model, cfg, b, vgg, step)
     return launches, state0, vgg, b
 
 
@@ -544,7 +693,8 @@ def train_stage_times(model, cfg, b, vgg, step):
     from diner_tpu_torch.losses import antibias_loss, vgg_loss
     from diner_tpu_torch.ops import composite_cuda
     from diner_tpu_torch.ops.sampling import (fill_up_uniform,
-                                              sample_depthguided)
+                                              sample_depthguided,
+                                              sample_depthguided_pruned)
     from diner_tpu_torch.renderer import draw_noise
     from diner_tpu_torch.train.diner import (SRC_KEYS, select_pixels,
                                              target_rays)
@@ -571,6 +721,14 @@ def train_stage_times(model, cfg, b, vgg, step):
             z = sample_depthguided(rays, ctx.view_maps(), K,
                                    rc.n_depth_candidates, u_coarse, gauss,
                                    rc.n_gaussian, rc.depth_diff_max)
+            return fill_up_uniform(z, rays, u_fill)
+
+    def sampler_pruned():
+        with torch.no_grad():
+            z = sample_depthguided_pruned(
+                rays, ctx.view_maps(), K, rc.n_depth_candidates,
+                PRUNED["n_coarse_candidates"], PRUNED["n_refine_bins"],
+                u_coarse, gauss, rc.n_gaussian, rc.depth_diff_max)
             return fill_up_uniform(z, rays, u_fill)
 
     z = sampler()
@@ -607,6 +765,7 @@ def train_stage_times(model, cfg, b, vgg, step):
     ms = {
         "encode_fwd_bwd_ms": cuda_time_ms(encode_fb, 5, 1),
         "sampler_ms": cuda_time_ms(sampler, 10, 2),
+        "sampler_pruned_ms": cuda_time_ms(sampler_pruned, 10, 2),
         "field_fwd_bwd_ms": cuda_time_ms(field_fb, 5, 1),
         "composite_a_b_ms": cuda_time_ms(composite_fb),
         "vgg_antibias_fwd_bwd_ms": cuda_time_ms(losses_fb, 10, 2),
@@ -614,7 +773,7 @@ def train_stage_times(model, cfg, b, vgg, step):
         "adam_step_ms": cuda_time_ms(step.optimizer.step, 10, 2),
     }
     emit("train_stages", rays=NR, samples=K, **ms,
-         sum_ms=sum(ms.values()))
+         sum_ms=sum(v for k, v in ms.items() if k != "sampler_pruned_ms"))
 
 
 def phase_train_grad_f32(state, vgg, b):
@@ -664,16 +823,17 @@ def phase_train_grad_f32(state, vgg, b):
           f"grad {worst} at {name}")
 
 
-def phase_train_small_reference():
+def phase_train_small_reference(pruned=False):
     """A small production step on the card against the same step on the
-    CPU: same weights, VGG, pixels and noise, f32."""
+    CPU: same weights, VGG, pixels and noise, f32; with the one-stage or
+    the pruned sampler (64 candidates: 16 coarse bins of 4, 4 refined)."""
     import copy
 
     from diner_tpu_torch.data.synthetic import make_sphere_scene
     from diner_tpu_torch.losses import init_vgg19
     from diner_tpu_torch.models.pixelnerf import PixelNeRFConfig
     from diner_tpu_torch.nn.spatial_encoder import SpatialEncoderConfig
-    from diner_tpu_torch.ops import composite_cuda
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.renderer import RendererConfig, draw_noise
     from diner_tpu_torch.train.diner import (DinerConfig, batch_to_device,
                                              compute_losses, create_model,
@@ -682,7 +842,9 @@ def phase_train_small_reference():
         nerf=PixelNeRFConfig(encoder=SpatialEncoderConfig(
             backbone="resnet18", num_layers=2, image_padding=8), d_hidden=32),
         renderer=RendererConfig(n_samples=8, n_depth_candidates=64,
-                                n_gaussian=3, white_bkgd=False),
+                                n_gaussian=3, white_bkgd=False,
+                                n_coarse_candidates=16 if pruned else 0,
+                                n_refine_bins=4),
         w_vgg=0.1, vgg_spatch=16, w_antibias=1.0)
     batch = make_sphere_scene(H=32, W=40, nv=2)
     cpu_model = create_model(cfg, batch, seed=0, device="cpu")
@@ -695,17 +857,23 @@ def phase_train_small_reference():
     for where, dev in (("cpu", "cpu"), ("card", "cuda")):
         m = copy.deepcopy(cpu_model).to(dev)
         composite_cuda.launches = composite_cuda.bwd_launches = 0
+        gather_cuda.launches = 0
         total, _ = compute_losses(
             m, cfg, batch_to_device(batch, dev),
             copy.deepcopy(cpu_vgg).to(dev), pix_idcs=pix.to(dev),
             noise=tuple(t.to(dev) for t in noise))
         total.backward()
         res[where] = (total.item(), grads_of(m),
-                      (composite_cuda.launches, composite_cuda.bwd_launches))
-    check(res["card"][2] == (1, 1), f"card step launches {res['card'][2]}")
+                      (composite_cuda.launches, composite_cuda.bwd_launches,
+                       gather_cuda.launches))
+    expected = (1, 1, 7 if pruned else 6)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0),
+          f"card step launches {res['card'][2]}, expected {expected}; "
+          f"CPU step {res['cpu'][2]}")
     loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
     worst, name, nonzero = grad_errs(res["card"][1], res["cpu"][1])
-    emit("train_small_reference", rays=cfg.rays_per_step,
+    emit("train_small_reference", sampler="pruned" if pruned else
+         "one-stage", rays=cfg.rays_per_step,
          loss_card=res["card"][0], loss_cpu=res["cpu"][0],
          loss_rel_err=loss_err, worst_grad_err_over_norm=worst,
          worst_param=name, params=len(res["cpu"][1]),
@@ -716,28 +884,167 @@ def phase_train_small_reference():
           f"card vs CPU step: loss {loss_err}, grad {worst} at {name}")
 
 
-def phase_gather_yardstick():
-    """``index_select`` (the library yardstick of the row gather, kernel C,
-    not yet ported) at its two hot shapes, with the gather's bound: the
-    table read once, int32 indices and the output written once. Indices
-    are uniform random rows, seeded."""
+def gather_row(table, idx, runs=30):
+    """Kernel C against ``table[idx]`` (plain) and ``index_select``
+    (library) on one input: exactness, CUDA-event times, and the bound:
+    the distinct table rows the indices touch, read once, the indices at
+    their width and the output written once."""
+    from diner_tpu_torch.ops import gather_cuda
+    got = gather_cuda.row_gather_kernel(table, idx)
+    torch.cuda.synchronize()
+    ref = gather_cuda.row_gather_plain(table, idx)
+    exact = torch.equal(got, ref)
+    err = (float((got.float() - ref.float()).abs().max())
+           if got.numel() else 0.0)
+    del got, ref
+    row_bytes = table.shape[1] * table.element_size()
+    distinct = int(torch.unique(idx).numel())
+    n_bytes = (distinct * row_bytes + idx.numel() * idx.element_size()
+               + idx.numel() * row_bytes)
+    return dict(
+        R=table.shape[0], C=table.shape[1], dtype=str(table.dtype),
+        P=idx.numel(), index_dtype=str(idx.dtype), exact=exact,
+        max_abs_err=err, distinct_rows=distinct,
+        ms=cuda_time_ms(lambda: gather_cuda.row_gather_kernel(table, idx),
+                        runs),
+        plain_ms=cuda_time_ms(lambda: table[idx], runs),
+        library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, idx),
+                                runs),
+        bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+
+
+# (case, R, C, dtype, P) — the path's row gathers: sampler maps (one-stage
+# and one pruned stage), latent corners (all four corners of an eval chunk
+# in one call, as the index_select yardstick of earlier runs took them;
+# one corner in eval and in training), the depth lookup, the pair table's
+# row fetch, and the C = 128 f32 proxy of scripts/gather_lab.py
+GATHER_CASES = (
+    ("sampler_map_c5_f32", 4 * 512 * 640, 5, torch.float32, 4 * 4096 * 1000),
+    ("sampler_map_c5_f32_pruned_stage", 4 * 512 * 640, 5, torch.float32,
+     4 * 4096 * 128),
+    ("latent_c512_bf16", 4 * 320 * 384, 512, torch.bfloat16,
+     4 * 4096 * 64 * 4),
+    ("latent_corner_c512_bf16", 4 * 320 * 384, 512, torch.bfloat16,
+     4 * 4096 * 64),
+    ("latent_corner_c512_bf16_train", 4 * 320 * 384, 512, torch.bfloat16,
+     4 * 4096 * 40),
+    ("depth_c1_f32", 4 * 512 * 640, 1, torch.float32, 4 * 4096 * 64),
+    ("pair_row_c1024_bf16", 4 * 320 * 384, 1024, torch.bfloat16,
+     4 * 4096 * 64),
+    ("lab_proxy_c128_f32", 4 * 512 * 640, 128, torch.float32, 512_000),
+)
+
+
+def phase_kernel_gather():
+    """Kernel C at the path's shapes (uniform random rows, int64 indices
+    as the port builds them; the lab proxy int32 as gather_lab.py), then
+    edge cases: unaligned and strided tables, odd bf16 rows, P = 1, R = 1,
+    out-of-range indices (clamped). Every case must be exact."""
+    from diner_tpu_torch.ops import gather_cuda
     g = torch.Generator(device="cuda").manual_seed(8)
-    cases = (("sampler_map_c5_f32", 4 * 512 * 640, 5, torch.float32,
-              4096 * 1000 * 4),
-             ("latent_c512_bf16", 4 * 320 * 384, 512, torch.bfloat16,
-              4 * 4096 * 64 * 4))
-    for name, n_rows, C, dtype, P in cases:
-        table = torch.randn((n_rows, C), generator=g, device="cuda"
-                            ).to(dtype)
-        idx = torch.randint(0, n_rows, (P,), generator=g, device="cuda")
-        ms = cuda_time_ms(lambda: torch.index_select(table, 0, idx), 10, 2)
-        size = table.element_size()
-        n_bytes = n_rows * C * size + P * 4 + P * C * size
-        emit("gather_yardstick", case=name, table_rows=n_rows, C=C,
-             dtype=str(dtype), P=P, library_ms=ms,
-             bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+    rows = []
+    for name, n_rows, C, dtype, P in GATHER_CASES:
+        table = torch.randn((n_rows, C), generator=g, device="cuda").to(dtype)
+        idx = torch.randint(0, n_rows, (P,), generator=g, device="cuda",
+                            dtype=torch.int32 if C == 128 else torch.int64)
+        row = dict(case=name, **gather_row(table, idx))
+        emit("kernel_gather", name="row_gather", **row)
+        check(row["exact"], f"row gather kernel vs plain {row}")
+        rows.append(row)
         del table, idx
         torch.cuda.empty_cache()
+
+    wide = torch.randn((4001, 9), generator=g, device="cuda")
+    idx = torch.randint(0, 4000, (50_000,), generator=g, device="cuda")
+    edge = {
+        "c5_f32_offset_36B": wide.reshape(-1)[9:9 + 4000 * 5].view(4000, 5),
+        "c5_f32_strided_rows": wide[1:, 2:7],
+        "c3_f32": wide.reshape(-1)[:4000 * 3].view(4000, 3),
+        "c7_bf16_offset_2B": wide.bfloat16().reshape(-1)[1:1 + 4000 * 7]
+        .view(4000, 7),
+        "c512_bf16_int32": torch.randn((4000, 512), generator=g,
+                                       device="cuda").bfloat16(),
+    }
+    for name, table in edge.items():
+        ix = idx.int() if name.endswith("int32") else idx
+        for case, t, i in ((name, table, ix), (name + "_P1", table, ix[:1]),
+                           (name + "_R1", table[:1], ix.clamp(max=0))):
+            got = gather_cuda.row_gather_kernel(t, i)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, gather_cuda.row_gather_plain(t, i))
+            row = dict(case=case, R=t.shape[0], C=t.shape[1],
+                       dtype=str(t.dtype), P=i.numel(), exact=exact,
+                       max_abs_err=0.0 if exact else float("inf"))
+            emit("kernel_gather", name="row_gather", **row)
+            check(exact, f"row gather kernel vs plain {row}")
+            rows.append(row)
+    bad = torch.tensor([-5, 0, 3999, 4000, 10 ** 12], device="cuda")
+    t = edge["c5_f32_offset_36B"]
+    exact = torch.equal(gather_cuda.row_gather_kernel(t, bad),
+                        t[bad.clamp(0, 3999)])
+    emit("kernel_gather", name="row_gather", case="clamp_out_of_range",
+         exact=exact, max_abs_err=0.0 if exact else float("inf"))
+    check(exact, "row gather kernel does not clamp out-of-range indices")
+    return rows
+
+
+def capture_gathers(fn):
+    """Run ``fn`` and return the (table, idx) of every row gather it made
+    through the grid-sample and sampler modules, in call order."""
+    from diner_tpu_torch.ops import gather_cuda, grid_sample, sampling
+    calls = []
+
+    def spy(table, idx):
+        calls.append((table, idx))
+        return gather_cuda.row_gather(table, idx)
+
+    saved = grid_sample.row_gather, sampling.row_gather
+    grid_sample.row_gather = sampling.row_gather = spy
+    try:
+        fn()
+    finally:
+        grid_sample.row_gather, sampling.row_gather = saved
+    return calls
+
+
+GATHER_KINDS = {(5, torch.float32): "sampler_map", (1, torch.float32): "depth",
+                (512, torch.bfloat16): "latent_corner",
+                (1024, torch.bfloat16): "pair_row"}
+
+
+def gather_path(model, cfg, batch, H, W):
+    """Kernel C at the indices one 4096-ray chunk through the image centre
+    hands it (spatially coherent, unlike the random rows above), for the
+    one-stage, pruned and pair-table renders. Returns {config: launches}."""
+    from diner_tpu_torch.renderer import draw_noise, render_rays
+    from diner_tpu_torch.train.diner import (SRC_KEYS, batch_to_device,
+                                             target_rays)
+    rc = cfg.renderer
+    b = batch_to_device(batch, "cuda")
+    start = (H * W) // 2 - rc.ray_chunk // 2
+    rays = target_rays(cfg, b, H, W)[:, start:start + rc.ray_chunk]
+    rays = rays.contiguous()
+    noise = draw_noise(rc, 1, rc.ray_chunk, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(4))
+    counts = {}
+    with torch.no_grad():
+        ctx = model.encode(*(b[k] for k in SRC_KEYS))
+        for name, c, rcfg in (
+                ("one_stage", ctx, rc), ("pairs", ctx.with_latent_pairs(), rc),
+                ("pruned", ctx, dataclasses.replace(rc, **PRUNED))):
+            calls = capture_gathers(lambda: render_rays(
+                model.field, c, rays, rcfg, noise=noise))
+            counts[name] = len(calls)
+            for i, (table, idx) in enumerate(calls):
+                kind = GATHER_KINDS[(table.shape[1], table.dtype)]
+                row = dict(config=name, call=i, kind=kind,
+                           **gather_row(table, idx, runs=20))
+                emit("gather_path", **row)
+                check(row["exact"], f"row gather kernel vs plain {row}")
+            del calls
+    check(counts == {"one_stage": 6, "pairs": 4, "pruned": 7},
+          f"row gathers per chunk {counts}, expected 6 / 4 / 7")
+    return counts
 
 
 def main():
@@ -751,16 +1058,28 @@ def main():
     phase_build()
     rows = phase_kernel()
     bwd_rows = phase_kernel_bwd()
-    eval_fwd, eval_bwd = phase_path()
+    gather_rows = phase_kernel_gather()
+    eval_l, ev = phase_path()
+    pairs_l = phase_path_pairs(ev)
+    pruned_l = phase_path_pruned(ev)
+    del ev
+    torch.cuda.empty_cache()
     phase_small_reference()
-    (train_fwd, train_bwd), state, vgg, b = phase_train_path()
+    train_l, state, vgg, b = phase_train_path()
     phase_train_grad_f32(state, vgg, b)
     del state, vgg, b
     torch.cuda.empty_cache()
+    train_pruned_l = phase_train_path(pruned=True)[0]
+    torch.cuda.empty_cache()
     phase_train_small_reference()
-    phase_gather_yardstick()
+    phase_train_small_reference(pruned=True)
 
-    def entry(name, row_list, main, replaces, by_path):
+    paths = {"eval_render": eval_l, "eval_render_pairs": pairs_l,
+             "eval_render_pruned": pruned_l, "train_steps": train_l,
+             "train_steps_pruned": train_pruned_l}
+
+    def entry(name, row_list, main, replaces, which, library_ms=None):
+        by_path = {p: launches[which] for p, launches in paths.items()}
         return {
             "name": name, "route": "cuda",
             "source": f"diner_tpu_torch/csrc/{name}.cu",
@@ -769,20 +1088,29 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in row_list),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
+            "library_ms": library_ms,
         }
 
+    # kernel C's row: one eval latent corner (the path's largest gather
+    # by bytes, 320 of an image's 480 launches); every timed case beside it
+    corner = next(r for r in gather_rows
+                  if r["case"] == "latent_corner_c512_bf16")
     kernels = [
         entry("composite_fwd", rows,
               next(r for r in rows if (r["R"], r["K"]) == (4096, 64)),
-              "diner_tpu/ops/pallas/composite_pallas.py:29",
-              {"eval_render": eval_fwd, "train_steps": train_fwd}),
+              "diner_tpu/ops/pallas/composite_pallas.py:29", 0),
         # the train step's case: R = 4096, K = 40, only g_rgb
         entry("composite_bwd", bwd_rows,
               next(r for r in bwd_rows if "ms" in r
                    and not r["g_depth_and_g_w"]),
-              "diner_tpu/ops/pallas/composite_pallas.py:54",
-              {"eval_render": eval_bwd, "train_steps": train_bwd}),
+              "diner_tpu/ops/pallas/composite_pallas.py:54", 1),
+        dict(entry("row_gather", gather_rows, corner,
+                   "diner_tpu/ops/pallas/gather_pallas.py:45", 2,
+                   library_ms=corner["library_ms"]),
+             main_case=corner["case"],
+             cases=[{k: r[k] for k in ("case", "C", "P", "ms", "plain_ms",
+                                       "library_ms", "bound_ms")}
+                    for r in gather_rows if "ms" in r]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -4,10 +4,12 @@ Mirrors the JAX package's module layout (``geometry``, ``ops``, ``nn``,
 ``models``, ``renderer``, ``losses``, ``train``, ``utils``, ``data``) in
 PyTorch idiom: ``nn.Module``s and plain tensor functions, channels-last
 layouts at public functions, explicit devices and explicit
-``torch.Generator``s. The TPU kernel on the eval-render and training paths
-(fused alpha compositing, forward and backward) is two CUDA C++ kernels
-under ``csrc/`` behind one ``torch.autograd.Function``, built with
-``nvcc`` for ``sm_90a`` at first use.
+``torch.Generator``s. The JAX package's TPU kernels are CUDA C++ kernels
+under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use: fused
+alpha compositing, forward and backward, behind one
+``torch.autograd.Function`` (``ops/composite_cuda.py``), and the row
+gather under every flat gather of the sampler and the field
+(``ops/gather_cuda.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 This package imports ``torch`` and never ``jax`` or ``diner_tpu``.

@@ -21,7 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 SOURCES = {"composite_fwd": "csrc/composite_fwd.cu",
-           "composite_bwd": "csrc/composite_bwd.cu"}
+           "composite_bwd": "csrc/composite_bwd.cu",
+           "row_gather": "csrc/row_gather.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,12 +8,17 @@ Exponential padding is analytic: no padded canvas is built.
 ``F.grid_sample`` is not used: it takes NCHW images, and its bilinear
 weights and border handling differ in rounding from the JAX package's.
 ``grid_sample_bilinear_imggrad`` carries the JAX package's hand-written
-image-only backward (``_gs_bilinear_bwd``).
+image-only backward (``_gs_bilinear_bwd``). Every pixel fetch is one flat
+row gather (kernel C on the card, ``ops/gather_cuda.py``); the wide-row
+pair table (``build_pair_table``, ``grid_sample_bilinear_pairs``) fetches
+both x-corners of a lookup as one row.
 """
 
 from __future__ import annotations
 
 import torch
+
+from diner_tpu_torch.ops.gather_cuda import row_gather
 
 
 def _unnormalize(coord, size, align_corners: bool = False):
@@ -26,12 +31,12 @@ def _unnormalize(coord, size, align_corners: bool = False):
 def _gather_pixels(img, ix, iy):
     """img[n, iy, ix, :] for in-bounds integer maps (N, P) → (N, P, C).
 
-    One flat row gather on (N·H·W, C).
+    One flat row gather on (N·H·W, C), a view of a contiguous image.
     """
     N, H, W, C = img.shape
     base = (torch.arange(N, device=img.device) * (H * W))[:, None]
     idx = (base + iy.long() * W + ix.long()).reshape(-1)
-    return img.reshape(N * H * W, C).index_select(0, idx).reshape(
+    return row_gather(img.reshape(N * H * W, C), idx).reshape(
         N, ix.shape[-1], C)
 
 
@@ -146,6 +151,79 @@ def grid_sample_bilinear_imggrad(img, uv, padding_mode: str = "border",
     values and has no counterpart here.
     """
     return _BilinearImgGrad.apply(img, uv, padding_mode, align_corners)
+
+
+def build_pair_table(img):
+    """Parity-concatenated x-pair row table for wide-row bilinear lookups.
+
+    (N, H, W, C) with even W → (N·H·W, 2C): rows are horizontally adjacent
+    texel pairs. The first N·H·W/2 rows are the pairs starting at even x
+    (the image itself, read two texels at a time); the rest start at odd x,
+    and the last odd pair's right texel is a zero pad, only ever read with
+    bilinear weight 0 ("border" clips x to W − 1). Written in place into
+    one (2, N, H, W, C) buffer: 2× the image's bytes, no temporaries.
+    """
+    N, H, W, C = img.shape
+    if W % 2:
+        raise ValueError("pair table needs even W")
+    pairs = img.new_empty((2, N, H, W, C))
+    pairs[0] = img
+    pairs[1, :, :, :W - 1] = img[:, :, 1:]
+    pairs[1, :, :, W - 1] = 0
+    return pairs.reshape(N * H * W, 2 * C)
+
+
+def grid_sample_bilinear_pairs(pairs, img_shape, uv,
+                               padding_mode: str = "border",
+                               align_corners: bool = False):
+    """Bilinear point sampling from a prebuilt pair table: two row fetches
+    per point instead of four.
+
+    Bit-identical to :func:`grid_sample_bilinear`: the same corner indices,
+    the same per-corner weight products cast to the table dtype and the
+    same order of the four terms. ``pairs`` comes from
+    :func:`build_pair_table`, ``img_shape`` is the image's (N, H, W, C) and
+    ``uv`` (N, P, 2) → (N, P, C). "border" padding only. Autograd works but
+    scatters into the pair table; training keeps
+    :func:`grid_sample_bilinear_imggrad`.
+    """
+    N, H, W, C = img_shape
+    P = uv.shape[1]
+    if padding_mode != "border":
+        raise ValueError("pair-table sampling supports border mode only")
+    x = _unnormalize(uv[..., 0], W, align_corners).clamp(0.0, W - 1)
+    y = _unnormalize(uv[..., 1], H, align_corners).clamp(0.0, H - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx1 = x - x0
+    wy1 = y - y0
+    x0i = x0.long()
+    y0i = y0.long()
+    y1i = torch.clamp(y0i + 1, max=H - 1)
+
+    half = W // 2
+    n_even = N * H * half
+    nbase = (torch.arange(N, device=uv.device) * H)[:, None]
+    even = x0i % 2 == 0
+
+    def fetch(yy):
+        base = (nbase + yy) * half
+        # floor division: x0i = 0 gives −1 in the odd branch, which the
+        # where discards before anything is gathered
+        idx = torch.where(even, base + x0i // 2,
+                          n_even + base + (x0i - 1) // 2)
+        return row_gather(pairs, idx.reshape(-1)).reshape(N, P, 2, C)
+
+    g0 = fetch(y0i)
+    g1 = fetch(y1i)
+
+    def w(wgt):  # the product and cast of the 4-corner path
+        return wgt[..., None].to(pairs.dtype)
+
+    return (g0[:, :, 0] * w((1.0 - wx1) * (1.0 - wy1))
+            + g0[:, :, 1] * w(wx1 * (1.0 - wy1))
+            + g1[:, :, 0] * w((1.0 - wx1) * wy1)
+            + g1[:, :, 1] * w(wx1 * wy1))
 
 
 def exponential_pad_mult(ix, iy, H, W, pad_size, double_width, dtype):

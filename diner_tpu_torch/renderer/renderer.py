@@ -1,8 +1,10 @@
 """Depth-guided-sampling volume renderer.
 
-Port of ``diner_tpu/renderer/renderer.py``: depth-guided shortlist →
-uniform fill-up → field evaluation → alpha compositing. The field is a
-callable ``field_fn(ctx, xyz, viewdirs) -> (SB, B, 4)``. Noise is either
+Port of ``diner_tpu/renderer/renderer.py``: depth-guided shortlist (the
+one-stage sampler, or the pruned two-stage one when
+``n_coarse_candidates > 0``) → uniform fill-up → field evaluation → alpha
+compositing. The field is a callable
+``field_fn(ctx, xyz, viewdirs) -> (SB, B, 4)``. Noise is either
 passed in pre-drawn, as ``(u_coarse, gauss, u_fill)`` with the shapes of
 ``renderer.py:78-84`` in the JAX package, or drawn from a
 ``torch.Generator``.
@@ -27,7 +29,9 @@ import torch.nn.functional as F
 from diner_tpu_torch.models.scene import SceneContext
 from diner_tpu_torch.ops import composite as composite_plain
 from diner_tpu_torch.ops import composite_cuda
-from diner_tpu_torch.ops.sampling import fill_up_uniform, sample_depthguided
+from diner_tpu_torch.ops.sampling import (check_pruned, fill_up_uniform,
+                                          sample_depthguided,
+                                          sample_depthguided_pruned)
 
 COMPOSITE_IMPLS = ("xla", "pallas", "torch")
 
@@ -39,6 +43,11 @@ class RendererConfig:
     n_gaussian: int = 15
     white_bkgd: bool = True
     depth_diff_max: float = 0.05
+    # the two-stage sampler (sample_depthguided_pruned): score
+    # n_coarse_candidates coarse bins, refine the fine grid inside the top
+    # n_refine_bins. 0 = the one-stage sampler
+    n_coarse_candidates: int = 0
+    n_refine_bins: int = 16
     # rays per chunk for full-image rendering (bounds peak memory)
     ray_chunk: int = 4096
     composite_impl: str = "xla"
@@ -49,6 +58,10 @@ class RendererConfig:
                              f"{COMPOSITE_IMPLS}")
         if self.n_gaussian > self.n_samples:
             raise ValueError("n_gaussian must not exceed n_samples")
+        if self.n_coarse_candidates > 0:  # fail here, not mid-render
+            check_pruned(self.n_samples, self.n_depth_candidates,
+                         self.n_coarse_candidates, self.n_refine_bins,
+                         self.n_gaussian)
 
 
 class RenderOutput(NamedTuple):
@@ -82,9 +95,15 @@ def render_rays(field_fn: FieldFn, ctx: SceneContext, rays,
     u_coarse, gauss, u_fill = noise
 
     with torch.no_grad():
-        z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
-                               cfg.n_depth_candidates, u_coarse, gauss,
-                               cfg.n_gaussian, cfg.depth_diff_max)
+        if cfg.n_coarse_candidates > 0:
+            z = sample_depthguided_pruned(
+                rays, ctx.view_maps(), cfg.n_samples, cfg.n_depth_candidates,
+                cfg.n_coarse_candidates, cfg.n_refine_bins, u_coarse, gauss,
+                cfg.n_gaussian, cfg.depth_diff_max)
+        else:
+            z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
+                                   cfg.n_depth_candidates, u_coarse, gauss,
+                                   cfg.n_gaussian, cfg.depth_diff_max)
         z = fill_up_uniform(z, rays, u_fill)  # (SB, NR, K) ascending
 
     K = cfg.n_samples

@@ -1,8 +1,9 @@
 """Structure of the PyTorch port: it imports no JAX and nothing of the JAX
-package, its entry points default to the GPU, and the compositing kernels
-(A forward, B backward) are held against their plain versions on a card
-(tests marked ``cuda``, which skip without one; ``chip_smoke.py`` runs the
-same comparisons at the eval and training paths' shapes)."""
+package, its entry points default to the GPU, and its kernels (A and B,
+compositing forward and backward; C, the row gather) are held against their
+plain versions on a card (tests marked ``cuda``, which skip without one;
+``chip_smoke.py`` runs the same comparisons at the eval and training
+paths' shapes)."""
 
 import ast
 import pkgutil
@@ -19,7 +20,7 @@ from diner_tpu_torch.data.synthetic import make_sphere_scene
 from diner_tpu_torch.device import resolve_device
 from diner_tpu_torch.losses import init_vgg19
 from diner_tpu_torch.ops import composite as plain
-from diner_tpu_torch.ops import composite_cuda, cuda_build
+from diner_tpu_torch.ops import composite_cuda, cuda_build, gather_cuda
 from diner_tpu_torch.train.diner import DinerConfig, create_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -80,7 +81,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_kernel_build_goes_to_ignored_build_dir():
-    assert sorted(cuda_build.SOURCES) == ["composite_bwd", "composite_fwd"]
+    assert sorted(cuda_build.SOURCES) == ["composite_bwd", "composite_fwd",
+                                          "row_gather"]
     for name, src in cuda_build.SOURCES.items():
         path = cuda_build.library_path(name)
         assert path.parent == ROOT / "build" / "kernels"
@@ -100,6 +102,39 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         composite_cuda.composite_bwd_kernel(
             torch.zeros(1, 4, 3, 3), x, x, torch.zeros(1, 4, 8),
             torch.zeros(1, 4, 3))
+
+
+def test_row_gather_kernel_refuses_what_it_does_not_take():
+    table = torch.zeros(10, 6)
+    idx = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_cuda.row_gather_kernel(table, idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_cuda.row_gather(table.t(), idx)  # (6, 10), column-major
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_cuda.row_gather(torch.zeros(1, 6).expand(10, 6), idx)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        gather_cuda.row_gather(table, idx.to(torch.int16))
+    with pytest.raises(ValueError, match="int32 or int64"):
+        gather_cuda.row_gather(table, idx.float())
+    with pytest.raises(ValueError, match=r"\(R, C\) and \(P,\)"):
+        gather_cuda.row_gather(table[None], idx)
+    with pytest.raises(ValueError, match=r"\(R, C\) and \(P,\)"):
+        gather_cuda.row_gather(table, idx[None])
+    with pytest.raises(ValueError, match="empty table"):
+        gather_cuda.row_gather(torch.zeros(0, 6), idx)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_cuda.row_gather(table.bool(), idx)
+
+
+def test_row_gather_unit_width():
+    assert gather_cuda.unit_bytes(2048, 2048, 256, 512) == 16
+    assert gather_cuda.unit_bytes(20, 20, 256, 512) == 4     # C = 5 f32
+    assert gather_cuda.unit_bytes(4, 4, 256, 512) == 4       # C = 1 f32
+    assert gather_cuda.unit_bytes(1024, 1024, 256 + 20, 512) == 4  # row view
+    assert gather_cuda.unit_bytes(14, 14, 256, 512) == 2     # C = 7 bf16
+    assert gather_cuda.unit_bytes(24, 40, 256, 512) == 8     # strided rows
+    assert gather_cuda.unit_bytes(3, 3, 256, 512) == 1
 
 
 # ------------------------------------------------------------- on the card
@@ -196,3 +231,70 @@ def test_kernel_refuses_foreign_layouts(cuda):
         composite_cuda.composite(out2[..., :3], out2[..., 3], z2, rays2)
     with pytest.raises(ValueError, match="float32"):
         composite_cuda.composite(out[..., :3].double(), out[..., 3], z, rays)
+
+
+# (R, C, dtype, P) of the path's row gathers at reduced P (chip_smoke.py
+# runs them at full P): sampler maps C = 5 f32, latent corners C = 512
+# bf16, depth C = 1 f32, pair table C = 1024 bf16; then the lab's C = 128
+# f32 proxy, an unaligned C = 3 f32 and an odd C = 7 bf16, P = 1 and R = 1
+GATHER_CASES = [(1_310_720, 5, torch.float32, 400_000),
+                (491_520, 512, torch.bfloat16, 65_536),
+                (1_310_720, 1, torch.float32, 200_000),
+                (491_520, 1024, torch.bfloat16, 32_768),
+                (300, 128, torch.float32, 2500),
+                (1000, 3, torch.float32, 3001),
+                (1000, 7, torch.bfloat16, 3001),
+                (300, 16, torch.float32, 1),
+                (1, 16, torch.float32, 77)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,dtype,P", GATHER_CASES)
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_row_gather_kernel_matches_plain_version(cuda, R, C, dtype, P,
+                                                 index_dtype):
+    g = torch.Generator(device="cuda").manual_seed(R + C + P)
+    table = torch.randn((R, C), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, R, (P,), generator=g, device=cuda,
+                        dtype=index_dtype)
+    before = gather_cuda.launches
+    got = gather_cuda.row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (P, C)
+    assert torch.equal(got, gather_cuda.row_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_row_gather_kernel_on_misaligned_and_strided_tables(cuda):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    wide = torch.randn((1001, 9), generator=g, device=cuda)
+    idx = torch.randint(0, 1000, (5000,), generator=g, device=cuda)
+    cases = [wide.reshape(-1)[9:9 + 1000 * 5].view(1000, 5),  # 36 B offset
+             wide[1:, 2:7],                                   # strided rows
+             wide.bfloat16().reshape(-1)[1:1 + 1000 * 7].view(1000, 7)]
+    for table in cases:
+        assert torch.equal(gather_cuda.row_gather(table, idx),
+                           gather_cuda.row_gather_plain(table, idx))
+    # out-of-range indices are clamped to [0, R - 1] as in JAX's gather
+    bad = torch.tensor([-5, 0, 999, 1000, 10 ** 9], device=cuda)
+    got = gather_cuda.row_gather_kernel(cases[0], bad)
+    assert torch.equal(got, cases[0][bad.clamp(0, 999)])
+    # P = 0 launches nothing
+    before = gather_cuda.launches
+    empty = gather_cuda.row_gather(cases[0], idx[:0])
+    assert empty.shape == (0, 5) and gather_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_row_gather_function_backward(cuda):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    table = torch.randn((50, 8), generator=g, device=cuda).requires_grad_()
+    idx = torch.randint(0, 50, (400,), generator=g, device=cuda)
+    cot = torch.randn((400, 8), generator=g, device=cuda)
+    before = gather_cuda.launches
+    gather_cuda.row_gather(table, idx).backward(cot)
+    assert gather_cuda.launches == before + 1
+    ref = table.detach().clone().requires_grad_()
+    ref.index_select(0, idx).backward(cot)
+    assert torch.allclose(table.grad, ref.grad, atol=1e-5, rtol=0)
