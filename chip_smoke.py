@@ -30,9 +30,15 @@ set to 0 just before each and read just after:
   through the plain composite, and small steps on the card against the
   same steps on the CPU.
 
-Profiler passes and per-layer CUDA-event timings say where the time goes;
-kernel C is timed against ``table[idx]`` and ``index_select`` at the
-path's shapes with random rows, and at the indices one real chunk hands it.
+Profiler passes (with each port kernel's summed device time) and
+per-layer CUDA-event timings say where the time goes. A kernel's ``ms``,
+its plain version's ``plain_ms`` and the library call's ``library_ms`` are
+device times: 50 calls captured in one CUDA graph, replayed between CUDA
+events, over 50 (``device_time_ms``). ``call_ms`` is one Python call of
+the wrapper between two events, host work included. Kernel C is timed
+against ``table[idx]`` and ``index_select`` at the path's shapes with
+random rows, and at the indices one real chunk hands it, warm and with L2
+flushed before each call.
 
 Each phase prints one JSON line; any failed check exits nonzero. The last
 three lines are the kernel table, the card's name and power limit as
@@ -76,7 +82,9 @@ def check(cond, what):
 
 
 def cuda_time_ms(fn, runs=30, warmup=5):
-    """Median device time of ``fn`` over ``runs`` warm calls (CUDA events)."""
+    """Median time of one warm Python call of ``fn`` between two CUDA
+    events (``call_ms``): on an idle device it includes the host work the
+    call does before its kernels start (checks, allocation, the launch)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -89,6 +97,57 @@ def cuda_time_ms(fn, runs=30, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_time_ms(fn, n=50, replays=5):
+    """Device time of one call of ``fn`` (``ms``): ``n`` back-to-back calls
+    captured in one CUDA graph on PyTorch's current stream, the graph
+    replayed ``replays`` times between CUDA events, the median replay over
+    ``n``. Only the kernels replay, not the host work of the call. Outputs
+    freed inside the capture are reused by the next call, so the graph
+    holds about one call's memory."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
+
+
+def cold_device_time_ms(fn, n=20):
+    """Device time of ``fn`` with L2 flushed before each call: a graph of
+    (write a 128 MB buffer, call) pairs, less a graph of the writes alone."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    both = device_time_ms(lambda: (flush.zero_(), fn()), n)
+    alone = device_time_ms(flush.zero_, n)
+    return both - alone
+
+
+def times_ms(fn, call_runs=30):
+    """``ms`` (device, CUDA graph) and ``call_ms`` (one Python call)."""
+    return dict(ms=device_time_ms(fn), call_ms=cuda_time_ms(fn, call_runs))
 
 
 def max_err(a, b):
@@ -121,9 +180,10 @@ def phase_build():
         for n, r in report.items()})
 
 
-def field_case(R, K, seed):
+def field_case(R, K, seed, contiguous_rgb=False):
     """Inputs as the renderer hands them to the composite: rgb and sigma
-    are views of the field's (1, R, K, 4) output."""
+    are views of the field's (1, R, K, 4) output (or rgb a contiguous
+    (1, R, K, 3) copy)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = torch.rand((1, R, K, 4), generator=g, device="cuda")
     out[..., 3] = torch.randn((1, R, K), generator=g, device="cuda") * 2
@@ -131,35 +191,48 @@ def field_case(R, K, seed):
                    + 0.5).values
     rays = torch.zeros((1, R, 8), device="cuda")
     rays[..., 7] = 2.5
-    return out[..., :3], out[..., 3], z, rays
+    rgb = out[..., :3].contiguous() if contiguous_rgb else out[..., :3]
+    return rgb, out[..., 3], z, rays
+
+
+# (R, K) of kernel A's checks: the eval (K = 64) and train (K = 40) shapes,
+# then R not a multiple of the rays per block and K around one and two
+# 32-sample chunks; timed at the first two
+COMPOSITE_CASES = ((4096, 64), (4096, 40), (4097, 1), (4097, 31), (4097, 32),
+                   (4097, 33), (4097, 40), (4097, 64), (4097, 100))
 
 
 def phase_kernel():
     from diner_tpu_torch.ops import composite as plain
     from diner_tpu_torch.ops import composite_cuda
     rows = []
-    for R, K in ((4096, 64), (4097, 40)):
+    for R, K in COMPOSITE_CASES:
         for white in (False, True):
-            args = field_case(R, K, R + K + white)
-            got = composite_cuda.composite_kernel(*args, white_bkgd=white)
-            torch.cuda.synchronize()
-            ref = plain.composite(*args, white_bkgd=white)
-            err = max_err(got, ref)
-            row = dict(R=R, K=K, white_bkgd=white, max_abs_err=err)
-            if (R, K) == (4096, 64):
-                row["ms"] = cuda_time_ms(
-                    lambda: composite_cuda.composite_kernel(*args, white))
-                row["plain_ms"] = cuda_time_ms(
-                    lambda: plain.composite(*args, white))
-                n_in = R * K * 5 + R          # rgb, sigma, z; far
-                n_out = R * 3 + R + R * K     # rgb, depth, weights
-                t_bytes = 4 * (n_in + n_out) / HBM_BYTES_PER_S
-                t_ops = COMPOSITE_FLOPS_PER_SAMPLE * R * K / F32_FLOPS_PER_S
-                row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-                row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            emit("kernel", name="composite_fwd", **row)
-            check(err <= 1e-5, f"composite kernel vs plain {row}")
-            rows.append(row)
+            for contiguous_rgb in (False, True):
+                args = field_case(R, K, R + K + white, contiguous_rgb)
+                got = composite_cuda.composite_kernel(*args,
+                                                      white_bkgd=white)
+                torch.cuda.synchronize()
+                ref = plain.composite(*args, white_bkgd=white)
+                err = max_err(got, ref)
+                row = dict(R=R, K=K, white_bkgd=white,
+                           contiguous_rgb=contiguous_rgb, max_abs_err=err)
+                if R == 4096 and not white and not contiguous_rgb:
+                    row.update(times_ms(
+                        lambda: composite_cuda.composite_kernel(*args, white)))
+                    row["plain_ms"] = device_time_ms(
+                        lambda: plain.composite(*args, white))
+                    n_in = R * K * 5 + R          # rgb, sigma, z; far
+                    n_out = R * 3 + R + R * K     # rgb, depth, weights
+                    t_bytes = 4 * (n_in + n_out) / HBM_BYTES_PER_S
+                    t_ops = (COMPOSITE_FLOPS_PER_SAMPLE * R * K
+                             / F32_FLOPS_PER_S)
+                    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+                    row["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+                emit("kernel", name="composite_fwd", **row)
+                check(err <= 1e-5, f"composite kernel vs plain {row}")
+                rows.append(row)
     return rows
 
 
@@ -195,9 +268,9 @@ def phase_kernel_bwd():
                            err_d_rgb=err_rgb, err_d_sigma=err_sigma,
                            d_sigma_scale=scale)
                 if (R, K, white) == (4096, 40, False):
-                    row["ms"] = cuda_time_ms(
-                        lambda: composite_cuda.composite_bwd_kernel(*args))
-                    row["plain_ms"] = cuda_time_ms(
+                    row.update(times_ms(
+                        lambda: composite_cuda.composite_bwd_kernel(*args)))
+                    row["plain_ms"] = device_time_ms(
                         lambda: plain.composite_bwd(rgb, sigma, z,
                                                     rays[..., 7], *args[4:]))
                     n_in = R * K * 5 + R * 4      # rgb, sigma, z; far, g_rgb
@@ -428,11 +501,16 @@ def profile_once(phase, fn):
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
     top = sorted(ops, key=lambda e: getattr(e, attr), reverse=True)[:12]
+    # the port's own kernels by the name their CUDA functions carry
+    port = {name: {"device_ms": sum(getattr(e, attr) for e in kernels
+                                    if name in e.key) / 1e3,
+                   "launches": sum(e.count for e in kernels if name in e.key)}
+            for name in ("composite_fwd", "composite_bwd", "row_gather")}
     emit(phase, wall_ms=wall * 1e3, kernel_ms=busy_ms,
          idle_share=1 - busy_ms / (wall * 1e3),
-         device_kernels=sum(e.count for e in kernels), top_ops=[
-             {"op": e.key, "device_ms": getattr(e, attr) / 1e3,
-              "calls": e.count} for e in top])
+         device_kernels=sum(e.count for e in kernels), port_kernels=port,
+         top_ops=[{"op": e.key, "device_ms": getattr(e, attr) / 1e3,
+                   "calls": e.count} for e in top])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / f"chip_smoke_{phase}.txt").write_text(
         events.table(sort_by=attr, row_limit=80))
@@ -884,11 +962,13 @@ def phase_train_small_reference(pruned=False):
           f"card vs CPU step: loss {loss_err}, grad {worst} at {name}")
 
 
-def gather_row(table, idx, runs=30):
+def gather_row(table, idx, runs=30, cold=False):
     """Kernel C against ``table[idx]`` (plain) and ``index_select``
-    (library) on one input: exactness, CUDA-event times, and the bound:
-    the distinct table rows the indices touch, read once, the indices at
-    their width and the output written once."""
+    (library) on one input: exactness, device times (``ms``, ``plain_ms``,
+    ``library_ms``; with ``cold``, also the kernel's and the library's with
+    L2 flushed before each call), the kernel's one-call ``call_ms``, and
+    the bound: the distinct table rows the indices touch, read once, the
+    indices at their width and the output written once."""
     from diner_tpu_torch.ops import gather_cuda
     got = gather_cuda.row_gather_kernel(table, idx)
     torch.cuda.synchronize()
@@ -901,16 +981,25 @@ def gather_row(table, idx, runs=30):
     distinct = int(torch.unique(idx).numel())
     n_bytes = (distinct * row_bytes + idx.numel() * idx.element_size()
                + idx.numel() * row_bytes)
-    return dict(
+
+    def kernel():
+        return gather_cuda.row_gather_kernel(table, idx)
+
+    def library():
+        return torch.index_select(table, 0, idx)
+
+    row = dict(
         R=table.shape[0], C=table.shape[1], dtype=str(table.dtype),
         P=idx.numel(), index_dtype=str(idx.dtype), exact=exact,
-        max_abs_err=err, distinct_rows=distinct,
-        ms=cuda_time_ms(lambda: gather_cuda.row_gather_kernel(table, idx),
-                        runs),
-        plain_ms=cuda_time_ms(lambda: table[idx], runs),
-        library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, idx),
-                                runs),
+        max_abs_err=err, distinct_rows=distinct, **times_ms(kernel, runs),
+        plain_ms=device_time_ms(lambda: table[idx]),
+        library_ms=device_time_ms(library),
+        library_call_ms=cuda_time_ms(library, runs),
         bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+    if cold:
+        row.update(ms_cold_l2=cold_device_time_ms(kernel),
+                   library_ms_cold_l2=cold_device_time_ms(library))
+    return row
 
 
 # (case, R, C, dtype, P) — the path's row gathers: sampler maps (one-stage
@@ -935,11 +1024,39 @@ GATHER_CASES = (
 )
 
 
+def gather_edge_tables(device, seed=0):
+    """Small tables of every row width the kernel takes (4 B to 2 KB; f32
+    and bf16), aligned, at odd offsets and with strided rows; also read by
+    tests/test_torch_kernels.py."""
+    g = torch.Generator().manual_seed(seed)
+    wide = torch.randn((4001, 9), generator=g).to(device)
+    big = torch.randn((4001, 1024), generator=g).bfloat16().to(device)
+    return {
+        "c1_f32": wide[:, 0].contiguous()[:4000, None],
+        "c1_f32_offset_4B": wide.reshape(-1)[1:4001, None],
+        "c3_f32": wide.reshape(-1)[:4000 * 3].view(4000, 3),
+        "c5_f32_offset_36B": wide.reshape(-1)[9:9 + 4000 * 5].view(4000, 5),
+        "c5_f32_strided_rows": wide[1:, 2:7],
+        "c7_bf16_offset_2B": wide.bfloat16().reshape(-1)[1:1 + 4000 * 7]
+        .view(4000, 7),
+        "c8_f32": wide[:, :8].contiguous()[:4000],
+        "c16_f32": torch.randn((4000, 16), generator=g).to(device),
+        "c128_f32": torch.randn((4000, 128), generator=g).to(device),
+        "c512_bf16": big[:4000, :512].contiguous(),
+        "c512_bf16_offset_4B": big.reshape(-1)[2:2 + 4000 * 512]
+        .view(4000, 512),
+        "c1024_bf16": big[:4000],
+        "c1024_bf16_strided_rows": big[1:, :1000],
+    }
+
+
 def phase_kernel_gather():
     """Kernel C at the path's shapes (uniform random rows, int64 indices
     as the port builds them; the lab proxy int32 as gather_lab.py), then
-    edge cases: unaligned and strided tables, odd bf16 rows, P = 1, R = 1,
-    out-of-range indices (clamped). Every case must be exact."""
+    edge cases at every row width, aligned, unaligned and strided, with
+    int32 and int64 indices: P = 50,001 (no multiple of the rows a thread
+    or warp takes), P = 1, R = 1, and out-of-range indices (clamped).
+    Every case must be exact."""
     from diner_tpu_torch.ops import gather_cuda
     g = torch.Generator(device="cuda").manual_seed(8)
     rows = []
@@ -954,37 +1071,28 @@ def phase_kernel_gather():
         del table, idx
         torch.cuda.empty_cache()
 
-    wide = torch.randn((4001, 9), generator=g, device="cuda")
-    idx = torch.randint(0, 4000, (50_000,), generator=g, device="cuda")
-    edge = {
-        "c5_f32_offset_36B": wide.reshape(-1)[9:9 + 4000 * 5].view(4000, 5),
-        "c5_f32_strided_rows": wide[1:, 2:7],
-        "c3_f32": wide.reshape(-1)[:4000 * 3].view(4000, 3),
-        "c7_bf16_offset_2B": wide.bfloat16().reshape(-1)[1:1 + 4000 * 7]
-        .view(4000, 7),
-        "c512_bf16_int32": torch.randn((4000, 512), generator=g,
-                                       device="cuda").bfloat16(),
-    }
-    for name, table in edge.items():
-        ix = idx.int() if name.endswith("int32") else idx
-        for case, t, i in ((name, table, ix), (name + "_P1", table, ix[:1]),
-                           (name + "_R1", table[:1], ix.clamp(max=0))):
-            got = gather_cuda.row_gather_kernel(t, i)
-            torch.cuda.synchronize()
-            exact = torch.equal(got, gather_cuda.row_gather_plain(t, i))
-            row = dict(case=case, R=t.shape[0], C=t.shape[1],
-                       dtype=str(t.dtype), P=i.numel(), exact=exact,
-                       max_abs_err=0.0 if exact else float("inf"))
-            emit("kernel_gather", name="row_gather", **row)
-            check(exact, f"row gather kernel vs plain {row}")
-            rows.append(row)
-    bad = torch.tensor([-5, 0, 3999, 4000, 10 ** 12], device="cuda")
-    t = edge["c5_f32_offset_36B"]
-    exact = torch.equal(gather_cuda.row_gather_kernel(t, bad),
-                        t[bad.clamp(0, 3999)])
-    emit("kernel_gather", name="row_gather", case="clamp_out_of_range",
-         exact=exact, max_abs_err=0.0 if exact else float("inf"))
-    check(exact, "row gather kernel does not clamp out-of-range indices")
+    idx = torch.randint(0, 4000, (50_001,), generator=g, device="cuda")
+    bad = torch.tensor([-5, 0, 3999, 4000, 10 ** 12, -(10 ** 12), 17],
+                       device="cuda")
+    for name, table in gather_edge_tables("cuda").items():
+        for index_dtype in (torch.int64, torch.int32):
+            ix = idx.to(index_dtype)
+            out_of_range = (bad if index_dtype == torch.int64 else
+                            bad.clamp(-2 ** 31, 2 ** 31 - 1).int())
+            for case, t, i in (
+                    (name, table, ix), (name + "_P1", table, ix[:1]),
+                    (name + "_R1", table[:1], ix.clamp(max=0)),
+                    (name + "_clamped", table, out_of_range)):
+                got = gather_cuda.row_gather_kernel(t, i)
+                torch.cuda.synchronize()
+                exact = torch.equal(got, t[i.long().clamp(0, len(t) - 1)])
+                row = dict(case=case, R=t.shape[0], C=t.shape[1],
+                           dtype=str(t.dtype), P=i.numel(),
+                           index_dtype=str(index_dtype), exact=exact,
+                           max_abs_err=0.0 if exact else float("inf"))
+                emit("kernel_gather", name="row_gather", **row)
+                check(exact, f"row gather kernel vs plain {row}")
+                rows.append(row)
     return rows
 
 
@@ -1015,7 +1123,10 @@ GATHER_KINDS = {(5, torch.float32): "sampler_map", (1, torch.float32): "depth",
 def gather_path(model, cfg, batch, H, W):
     """Kernel C at the indices one 4096-ray chunk through the image centre
     hands it (spatially coherent, unlike the random rows above), for the
-    one-stage, pruned and pair-table renders. Returns {config: launches}."""
+    one-stage, pruned and pair-table renders: warm, as repeated calls
+    leave the touched rows in L2, and with L2 flushed before each call, as
+    the render, whose field passes run between the gathers, finds it.
+    Returns {config: launches}."""
     from diner_tpu_torch.renderer import draw_noise, render_rays
     from diner_tpu_torch.train.diner import (SRC_KEYS, batch_to_device,
                                              target_rays)
@@ -1038,7 +1149,7 @@ def gather_path(model, cfg, batch, H, W):
             for i, (table, idx) in enumerate(calls):
                 kind = GATHER_KINDS[(table.shape[1], table.dtype)]
                 row = dict(config=name, call=i, kind=kind,
-                           **gather_row(table, idx, runs=20))
+                           **gather_row(table, idx, runs=20, cold=True))
                 emit("gather_path", **row)
                 check(row["exact"], f"row gather kernel vs plain {row}")
             del calls
@@ -1086,7 +1197,8 @@ def main():
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in row_list),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "call_ms": main["call_ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": library_ms,
         }
@@ -1095,10 +1207,14 @@ def main():
     # by bytes, 320 of an image's 480 launches); every timed case beside it
     corner = next(r for r in gather_rows
                   if r["case"] == "latent_corner_c512_bf16")
+    timed = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
     kernels = [
-        entry("composite_fwd", rows,
-              next(r for r in rows if (r["R"], r["K"]) == (4096, 64)),
-              "diner_tpu/ops/pallas/composite_pallas.py:29", 0),
+        dict(entry("composite_fwd", rows,
+                   next(r for r in rows if (r["R"], r["K"]) == (4096, 64)
+                        and "ms" in r),
+                   "diner_tpu/ops/pallas/composite_pallas.py:29", 0),
+             cases=[{k: r[k] for k in ("R", "K") + timed if k in r}
+                    for r in rows if "ms" in r]),
         # the train step's case: R = 4096, K = 40, only g_rgb
         entry("composite_bwd", bwd_rows,
               next(r for r in bwd_rows if "ms" in r
@@ -1108,9 +1224,12 @@ def main():
                    "diner_tpu/ops/pallas/gather_pallas.py:45", 2,
                    library_ms=corner["library_ms"]),
              main_case=corner["case"],
-             cases=[{k: r[k] for k in ("case", "C", "P", "ms", "plain_ms",
-                                       "library_ms", "bound_ms")}
-                    for r in gather_rows if "ms" in r]),
+             cases=[{k: r[k] for k in ("case", "C", "P") + timed}
+                    for r in gather_rows if "ms" in r],
+             path_cases=[{k: r[k] for k in ("config", "call", "kind", "P",
+                                            "distinct_rows", "ms_cold_l2",
+                                            "library_ms_cold_l2") + timed}
+                         for r in LOG if r["phase"] == "gather_path"]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

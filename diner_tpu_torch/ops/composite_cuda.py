@@ -39,8 +39,7 @@ _BWD_ARGTYPES = [_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L,
 
 @functools.cache
 def _library(name):
-    lib = cuda_build.load(name)
-    fn = getattr(lib, name)
+    fn = getattr(cuda_build.load(name), name)
     fn.argtypes = _FWD_ARGTYPES if name == "composite_fwd" else _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -80,8 +79,8 @@ def _check_inputs(rgb, sigma, z_samp, rays):
     return SB * B, K
 
 
-def _launch(name, *args):
-    err = _library(name)(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(name, device, *args):
+    err = cuda_build.launch(_library(name), device, *args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -102,12 +101,11 @@ def composite_kernel(rgb, sigma, z_samp, rays, white_bkgd: bool = False
     depth_out = torch.empty((R,), dtype=torch.float32, device=rgb.device)
     w_out = torch.empty((R, K), dtype=torch.float32, device=rgb.device)
     if R > 0:
-        with torch.cuda.device(rgb.device):
-            _launch("composite_fwd",
-                    c.data_ptr(), *c.stride(), s.data_ptr(), *s.stride(),
-                    z.data_ptr(), *z.stride(), far.data_ptr(), far.stride(0),
-                    rgb_out.data_ptr(), depth_out.data_ptr(),
-                    w_out.data_ptr(), R, K, int(bool(white_bkgd)))
+        _launch("composite_fwd", rgb.device,
+                c.data_ptr(), *c.stride(), s.data_ptr(), *s.stride(),
+                z.data_ptr(), *z.stride(), far.data_ptr(), far.stride(0),
+                rgb_out.data_ptr(), depth_out.data_ptr(),
+                w_out.data_ptr(), R, K, int(bool(white_bkgd)))
         launches += 1
     return CompositeOutput(rgb=rgb_out.view(SB, B, 3),
                            depth=depth_out.view(SB, B),
@@ -149,17 +147,16 @@ def composite_bwd_kernel(rgb, sigma, z_samp, rays, g_rgb, g_depth=None,
     d_rgb = torch.empty((R, K, 3), dtype=torch.float32, device=dev)
     d_sigma = torch.empty((R, K), dtype=torch.float32, device=dev)
     if R > 0:
-        with torch.cuda.device(dev):
-            _launch("composite_bwd",
-                    c.data_ptr(), *c.stride(), s.data_ptr(), *s.stride(),
-                    z.data_ptr(), *z.stride(), far.data_ptr(), far.stride(0),
-                    gr.data_ptr(), *gr.stride(),
-                    None if gd is None else gd.data_ptr(),
-                    0 if gd is None else gd.stride(0),
-                    None if gw is None else gw.data_ptr(),
-                    *((0, 0) if gw is None else gw.stride()),
-                    d_rgb.data_ptr(), d_sigma.data_ptr(), R, K,
-                    int(bool(white_bkgd)))
+        _launch("composite_bwd", dev,
+                c.data_ptr(), *c.stride(), s.data_ptr(), *s.stride(),
+                z.data_ptr(), *z.stride(), far.data_ptr(), far.stride(0),
+                gr.data_ptr(), *gr.stride(),
+                None if gd is None else gd.data_ptr(),
+                0 if gd is None else gd.stride(0),
+                None if gw is None else gw.data_ptr(),
+                *((0, 0) if gw is None else gw.stride()),
+                d_rgb.data_ptr(), d_sigma.data_ptr(), R, K,
+                int(bool(white_bkgd)))
         bwd_launches += 1
     return d_rgb.view(SB, B, K, 3), d_sigma.view(SB, B, K)
 

@@ -4,8 +4,9 @@
 Each source under ``diner_tpu_torch/csrc/`` exposes a plain C launcher and
 is compiled for ``sm_90a`` into ``build/kernels/`` at the repository root
 (listed in ``.gitignore``) at first use. The library name carries a hash of
-the source and flags, so an edited source is rebuilt. Nothing here runs at
-import: a machine without ``nvcc`` can import every module.
+the source and flags, so an edited source is rebuilt. :func:`launch` calls
+a launcher on PyTorch's current stream. Nothing here runs at import: a
+machine without ``nvcc`` can import every module.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
@@ -80,3 +83,14 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call the C launcher ``fn`` with ``args`` and the current stream of
+    the CUDA ``device``, switching the current device only when it is
+    another one; returns the launcher's CUDA error code."""
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if device.index == torch.cuda.current_device():
+        return fn(*args, raw_stream(device.index))
+    with torch.cuda.device(device.index):
+        return fn(*args, raw_stream(device.index))

@@ -2,12 +2,13 @@
 
 ``csrc/row_gather.cu`` replaces
 ``diner_tpu/ops/pallas/gather_pallas.py:_row_gather_kernel`` (launched by
-``pallas_row_gather``); its bound is in the source. :func:`row_gather` has
+``pallas_row_gather``); its bound and design are in the source. :func:`row_gather` has
 the signature of ``pallas_row_gather`` without the TPU tuning arguments and
 no 128-lane restriction: any row width, any dtype, int32 or int64 indices.
 It runs under every flat row gather of the port: the latent's four corners
 and the depth lookup (``ops/grid_sample.py``), the sampler's packed map
-(``ops/sampling.py``) and the pair table's two row fetches.
+(``ops/sampling.py``) and the pair table's two row fetches. :func:`plan`
+picks the kernel's regime (narrow, wide or unit-per-thread) and unit width.
 
 For a CPU table it runs the plain version, :func:`row_gather_plain`; for a
 CUDA table it launches kernel C or raises. The autograd backward is the
@@ -28,12 +29,16 @@ from diner_tpu_torch.ops import cuda_build
 launches = 0
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = [_P, _L, _L, _L, _P, _I, _L, _P, _I, _P]
+_ARGTYPES = [_P, _L, _L, _L, _P, _I, _L, _P, _I, _I, _P]
 INDEX_DTYPES = (torch.int32, torch.int64)
+# the regimes of csrc/row_gather.cu, by the number its launcher takes
+REGIMES = {"narrow": 0, "units": 1, "wide": 2}
+NARROW_MAX_ROW_BYTES = 32
+WIDE_MIN_ROW_BYTES = 256
 
 
 @functools.cache
-def _library():
+def _launcher():
     fn = cuda_build.load("row_gather").row_gather
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -51,6 +56,22 @@ def unit_bytes(*sizes) -> int:
     while width > 1 and any(s % width for s in sizes):
         width //= 2
     return width
+
+
+def plan(row_bytes: int, stride_bytes: int, table_addr: int,
+         out_addr: int) -> tuple[str, int]:
+    """Kernel C's (regime, unit bytes) for rows of ``row_bytes`` at
+    ``stride_bytes`` from ``table_addr`` into ``out_addr``: "narrow" (lanes
+    on consecutive 4 B units of 32-row batches) for rows of at most 32 B
+    whose unit is at least 4 B, read in 4 B units; "wide" (a warp on a few
+    rows, 16 B per lane and load) for rows of at least 256 B in 16 B units;
+    else "units" (a thread per unit)."""
+    unit = unit_bytes(row_bytes, stride_bytes, table_addr, out_addr)
+    if row_bytes <= NARROW_MAX_ROW_BYTES and unit >= 4:
+        return "narrow", 4
+    if row_bytes >= WIDE_MIN_ROW_BYTES and unit == 16:
+        return "wide", unit
+    return "units", unit
 
 
 def _check(table, idx):
@@ -74,13 +95,10 @@ def _check(table, idx):
         raise ValueError("row gather: indices into an empty table")
 
 
-def row_gather_kernel(table, idx):
-    """Launch kernel C (no autograd): (R, C) table, (P,) int32/int64 indices
-    → (P, C) contiguous. Indices are clamped to [0, R − 1] (the plain
-    version raises on them instead). The table's rows may be strided; its
-    last dimension must be contiguous."""
+def _launch(table, idx):
+    """Kernel C on checked inputs; raises unless the table is on a CUDA
+    device."""
     global launches
-    _check(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"row gather kernel: table is on {table.device}, "
                          "expected a CUDA device")
@@ -93,17 +111,25 @@ def row_gather_kernel(table, idx):
     size = table.element_size()
     row_bytes = C * size
     stride_bytes = table.stride(0) * size if R > 1 else row_bytes
-    unit = unit_bytes(row_bytes, stride_bytes, table.data_ptr(),
-                      out.data_ptr())
-    with torch.cuda.device(table.device):
-        err = _library()(table.data_ptr(), R, row_bytes, stride_bytes,
-                         idx.data_ptr(), idx.element_size(), P,
-                         out.data_ptr(), unit,
-                         torch.cuda.current_stream().cuda_stream)
+    regime, unit = plan(row_bytes, stride_bytes, table.data_ptr(),
+                        out.data_ptr())
+    err = cuda_build.launch(
+        _launcher(), table.device, table.data_ptr(), R, row_bytes,
+        stride_bytes, idx.data_ptr(), idx.element_size(), P, out.data_ptr(),
+        REGIMES[regime], unit)
     if err != 0:
         raise RuntimeError(f"row_gather kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def row_gather_kernel(table, idx):
+    """Launch kernel C (no autograd): (R, C) table, (P,) int32/int64 indices
+    → (P, C) contiguous. Indices are clamped to [0, R − 1] (the plain
+    version raises on them instead). The table's rows may be strided; its
+    last dimension must be contiguous."""
+    _check(table, idx)
+    return _launch(table, idx)
 
 
 class _RowGather(torch.autograd.Function):
@@ -116,7 +142,7 @@ class _RowGather(torch.autograd.Function):
         ctx.table_shape = table.shape
         if table.device.type == "cpu":
             return row_gather_plain(table, idx)
-        return row_gather_kernel(table, idx)
+        return _launch(table, idx)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,0 +1,148 @@
+"""Kernels A and C as designed for Hopper: kernel C's regime planner (on the
+CPU), and both kernels against their plain versions at the edges of their
+designs (tests marked ``cuda``, which skip without a card;
+``chip_smoke.py`` runs the same cases in its ``kernel`` and
+``kernel_gather`` phases).
+
+Kernel C must equal ``index_select`` bit for bit in every regime (narrow
+rows, wide rows, a thread per unit): every row width of the path and
+between, aligned, at odd offsets and with strided rows, int32 and int64
+indices, P = 1, P no multiple of the rows a lane or warp takes, R = 1 and
+out-of-range indices (clamped). Kernel A must stay within 1e-5 of the plain
+composite at K around one and two 32-sample chunks, with R no multiple of
+the rays per block, with and without a white background, for the field's
+strided views and for a contiguous rgb.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import gather_edge_tables
+from diner_tpu_torch.ops import composite as plain
+from diner_tpu_torch.ops import composite_cuda, gather_cuda
+
+OUT_ADDR = 1 << 20  # the wrapper's outputs come from torch.empty: aligned
+
+
+EDGE_PLANS = {
+    "c1_f32": ("narrow", 4),
+    "c1_f32_offset_4B": ("narrow", 4),
+    "c3_f32": ("narrow", 4),
+    "c5_f32_offset_36B": ("narrow", 4),
+    "c5_f32_strided_rows": ("narrow", 4),
+    "c7_bf16_offset_2B": ("units", 2),
+    "c8_f32": ("narrow", 4),
+    "c16_f32": ("units", 16),
+    "c128_f32": ("wide", 16),
+    "c512_bf16": ("wide", 16),
+    "c512_bf16_offset_4B": ("units", 4),
+    "c1024_bf16": ("wide", 16),
+    "c1024_bf16_strided_rows": ("wide", 16),
+}
+
+
+def _row_bytes(table):
+    size = table.element_size()
+    return (table.shape[1] * size,
+            table.stride(0) * size if table.shape[0] > 1
+            else table.shape[1] * size)
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_PLANS))
+def test_row_gather_plan_at_the_edge_views(name):
+    table = gather_edge_tables("cpu")[name]
+    row_bytes, stride_bytes = _row_bytes(table)
+    assert gather_cuda.plan(row_bytes, stride_bytes, table.data_ptr(),
+                            OUT_ADDR) == EDGE_PLANS[name]
+
+
+# chip_smoke.py's GATHER_CASES: (case, C, dtype) → (regime, unit bytes)
+PATH_PLANS = [
+    ("sampler_map_c5_f32", 5, torch.float32, ("narrow", 4)),
+    ("sampler_map_c5_f32_pruned_stage", 5, torch.float32, ("narrow", 4)),
+    ("latent_c512_bf16", 512, torch.bfloat16, ("wide", 16)),
+    ("latent_corner_c512_bf16", 512, torch.bfloat16, ("wide", 16)),
+    ("latent_corner_c512_bf16_train", 512, torch.bfloat16, ("wide", 16)),
+    ("depth_c1_f32", 1, torch.float32, ("narrow", 4)),
+    ("pair_row_c1024_bf16", 1024, torch.bfloat16, ("wide", 16)),
+    ("lab_proxy_c128_f32", 128, torch.float32, ("wide", 16)),
+]
+
+
+@pytest.mark.parametrize("case,C,dtype,expected", PATH_PLANS,
+                         ids=[p[0] for p in PATH_PLANS])
+def test_row_gather_plan_at_the_path_shapes(case, C, dtype, expected):
+    row_bytes = C * torch.empty((), dtype=dtype).element_size()
+    assert gather_cuda.plan(row_bytes, row_bytes, 0, OUT_ADDR) == expected
+
+
+def test_row_gather_plan_boundaries():
+    plan = gather_cuda.plan
+    assert plan(32, 32, 0, OUT_ADDR) == ("narrow", 4)    # in 4 B units
+    assert plan(36, 36, 0, OUT_ADDR) == ("units", 4)       # above 32 B
+    assert plan(240, 240, 0, OUT_ADDR) == ("units", 16)    # below 256 B
+    assert plan(256, 256, 0, OUT_ADDR) == ("wide", 16)
+    assert plan(6, 6, 0, OUT_ADDR) == ("units", 2)         # 2 B units
+    assert plan(20, 20, 0, OUT_ADDR + 2) == ("units", 2)   # out at 2 B
+    assert plan(1024, 1024, 8, OUT_ADDR) == ("units", 8)   # table at 8 B
+    assert plan(1024, 1032, 0, OUT_ADDR) == ("units", 8)   # stride 8 B
+    assert set(gather_cuda.REGIMES) == {"narrow", "units", "wide"}
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this on the H100")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_PLANS))
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_row_gather_kernel_exact_in_every_regime(cuda, name, index_dtype):
+    table = gather_edge_tables(cuda, seed=len(name))[name]
+    g = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, 4000, (50_001,), generator=g).to(cuda, index_dtype)
+    bad = torch.tensor([-5, 0, 3999, 4000, 10 ** 12, -(10 ** 12), 17])
+    if index_dtype == torch.int32:
+        bad = bad.clamp(-2 ** 31, 2 ** 31 - 1)
+    bad = bad.to(cuda, index_dtype)
+    for t, i in ((table, idx), (table, idx[:1]), (table, idx[:129]),
+                 (table[:1], idx.clamp(max=0)), (table, bad)):
+        before = gather_cuda.launches
+        got = gather_cuda.row_gather_kernel(t, i)
+        torch.cuda.synchronize()
+        assert gather_cuda.launches == before + 1
+        assert got.dtype == t.dtype and got.shape == (i.numel(), t.shape[1])
+        assert torch.equal(got, t[i.long().clamp(0, t.shape[0] - 1)])
+
+
+def _field_case(R, K, seed, device, contiguous_rgb):
+    g = torch.Generator().manual_seed(seed)
+    out = torch.rand((1, R, K, 4), generator=g)
+    out[..., 3] = torch.randn((1, R, K), generator=g) * 2
+    z = torch.sort(torch.rand((1, R, K), generator=g) * 1.5 + 0.5).values
+    rays = torch.zeros((1, R, 8))
+    rays[..., 7] = 2.5
+    out, z, rays = (t.to(device) for t in (out, z, rays))
+    rgb = out[..., :3].contiguous() if contiguous_rgb else out[..., :3]
+    return rgb, out[..., 3], z, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 40, 64, 100])
+@pytest.mark.parametrize("white", [False, True])
+@pytest.mark.parametrize("contiguous_rgb", [False, True])
+def test_composite_kernel_across_chunks(cuda, K, white, contiguous_rgb):
+    args = _field_case(4097, K, K + 7 * white, cuda, contiguous_rgb)
+    before = composite_cuda.launches
+    got = composite_cuda.composite_kernel(*args, white_bkgd=white)
+    torch.cuda.synchronize()
+    assert composite_cuda.launches == before + 1
+    ref = plain.composite(*args, white_bkgd=white)
+    for a, b in zip(got, ref):  # products and sums in another order
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-5, rtol=0)
