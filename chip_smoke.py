@@ -3,7 +3,10 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (kernel A, the compositing forward; kernel B, its backward; kernel C, the
-row gather), holds each against its plain PyTorch version on the card, then
+row gather), holds each against its plain PyTorch version on the card
+(kernel B at K = 1-100 around its 32-sample chunks and its register path,
+R = 4096 and 4097, white or not, with and without g_depth and g_w, strided
+or contiguous rgb), then
 drives the port's paths through its entry points, with the launch counts
 set to 0 just before each and read just after:
 
@@ -29,6 +32,15 @@ set to 0 just before each and read just after:
   moved, a 1024-ray f32 step through the kernels against the same step
   through the plain composite, and small steps on the card against the
   same steps on the CPU.
+- the training entry point (``train_loop``): ``configs/train_dtu.yaml``
+  through the port's ``load_train_config`` with only ``data`` replaced by
+  the sphere at 512×640 (4 views, 2 scenes a step, f32): ``python -m
+  diner_tpu_torch.train`` takes steps 1-4 in a subprocess, then
+  ``Trainer.fit`` resumes to step 6 in this process, checkpointing and
+  validating there. Checks: step counts, every checkpoint restoring bit
+  for bit, finite logged rows, a scored prediction folder of 2 images,
+  kernels A, B and C once, once and 6 times per step, A 80 and C 480 times
+  per validation image, peak memory under 40 GB.
 
 Profiler passes (with each port kernel's summed device time) and
 per-layer CUDA-event timings say where the time goes. A kernel's ``ms``,
@@ -49,6 +61,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -63,9 +76,10 @@ OUT_DIR = ROOT / "outputs" / "chip_smoke"  # git-ignored
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 COMPOSITE_FLOPS_PER_SAMPLE = 17  # delta, alpha (exp as 1), w, 4 sums, T
-# kernel B: two recomputes of delta, alpha, w, T and dL/dw (2 × 16), the
-# running sums (4), then dL/dalpha, d_sigma and d_rgb (14)
-COMPOSITE_BWD_FLOPS_PER_SAMPLE = 50
+# kernel B: delta, alpha, T and w (8), dL/dw (8 with g_depth and g_w), the
+# product and suffix scans (10), then the suffix, dL/dalpha, d_sigma and
+# d_rgb (12)
+COMPOSITE_BWD_FLOPS_PER_SAMPLE = 38
 PRUNED = dict(n_coarse_candidates=125, n_refine_bins=16)  # bench.py:84-85
 LOG = []
 
@@ -180,16 +194,16 @@ def phase_build():
         for n, r in report.items()})
 
 
-def field_case(R, K, seed, contiguous_rgb=False):
+def field_case(R, K, seed, contiguous_rgb=False, device="cuda"):
     """Inputs as the renderer hands them to the composite: rgb and sigma
     are views of the field's (1, R, K, 4) output (or rgb a contiguous
     (1, R, K, 3) copy)."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    out = torch.rand((1, R, K, 4), generator=g, device="cuda")
-    out[..., 3] = torch.randn((1, R, K), generator=g, device="cuda") * 2
-    z = torch.sort(torch.rand((1, R, K), generator=g, device="cuda") * 1.5
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = torch.rand((1, R, K, 4), generator=g, device=device)
+    out[..., 3] = torch.randn((1, R, K), generator=g, device=device) * 2
+    z = torch.sort(torch.rand((1, R, K), generator=g, device=device) * 1.5
                    + 0.5).values
-    rays = torch.zeros((1, R, 8), device="cuda")
+    rays = torch.zeros((1, R, 8), device=device)
     rays[..., 7] = 2.5
     rgb = out[..., :3].contiguous() if contiguous_rgb else out[..., :3]
     return rgb, out[..., 3], z, rays
@@ -236,60 +250,103 @@ def phase_kernel():
     return rows
 
 
+# (R, K) of kernel B's checks: K around one and two 32-sample chunks (the
+# register path holds K <= 64; 65 and 100 take the shared-memory path),
+# the training step's 40 and the eval shape's 64, each at R = 4096 and at
+# R no multiple of the rays per block, and the train loop's two scenes a
+# step (8192 x 40, where half a warp per ray was kept); timed at (4096, 40)
+COMPOSITE_BWD_CASES = tuple((R, K) for R in (4096, 4097)
+                            for K in (1, 31, 32, 33, 40, 63, 64, 65, 100)) \
+    + ((8192, 40),)
+
+
+def saturate(sigma, z, far, g):
+    """Drives samples of ``sigma`` (in place) to alpha ~ 1. On even rays one
+    sample, at a random k0, gets sigma * delta in [16.6, 17.7]: alpha rounds
+    to 1 in f32 while exp(-sigma * delta) is still 2e-8 to 6e-8, so the
+    1e-10 floor of (1 - alpha + 1e-10) divides S_k there and T drops by
+    1e-10 after it. On rays 1 mod 4 a quarter of the samples get sigma *
+    delta up to about 40 * K * delta (alpha = 1, no gradient)."""
+    R, K = sigma.shape[-2:]
+    dev = sigma.device
+    delta = torch.cat([z[..., 1:], far[..., None]], -1) - z
+    k0 = torch.randint(0, K, (1, R, 1), generator=g, device=dev)
+    window = ((16.6 + 1.1 * torch.rand((1, R, 1), generator=g, device=dev))
+              / delta.gather(-1, k0)).expand(1, R, K)
+    ray = torch.arange(R, device=dev)[:, None]
+    at_k0 = (torch.arange(K, device=dev) == k0) & (ray % 2 == 0)
+    deep = (torch.rand((1, R, K), generator=g, device=dev) < 0.25) \
+        & (ray % 4 == 1)
+    sigma[at_k0] = window[at_k0]
+    sigma[deep] = (torch.rand((1, R, K), generator=g, device=dev)
+                   * 40 * K)[deep]
+
+
+def composite_bwd_case(R, K, white, with_g_w, contiguous_rgb, device,
+                       saturated=False):
+    """Kernel B's arguments for one case: the field's views (or a
+    contiguous rgb) and seeded cotangents; g_depth and g_w are None (as the
+    train step hands them) unless ``with_g_w``; ``saturated``: samples at
+    alpha ~ 1 (``saturate``)."""
+    rgb, sigma, z, rays = field_case(R, K, 7 * R + K + white,
+                                     contiguous_rgb, device)
+    g = torch.Generator(device=device).manual_seed(K + with_g_w)
+    if saturated:
+        saturate(sigma, z, rays[..., 7], g)
+    g_rgb = torch.randn((1, R, 3), generator=g, device=device)
+    g_depth, g_w = ((torch.randn((1, R), generator=g, device=device),
+                     torch.randn((1, R, K), generator=g, device=device))
+                    if with_g_w else (None, None))
+    return rgb, sigma, z, rays, g_rgb, g_depth, g_w, white
+
+
 def phase_kernel_bwd():
-    """Kernel B against ``composite_bwd`` on the card. The train step hands
-    it only g_rgb (its depth and weights outputs are unused); the cases
-    with g_depth and g_w exercise the rest of the VJP."""
+    """Kernel B against ``composite_bwd`` on the card, at every case of
+    ``COMPOSITE_BWD_CASES``, white background or not, with only g_rgb (the
+    train step's case: its depth and weights outputs are unused) or with
+    g_depth and g_w too, for the field's strided rgb and a contiguous one,
+    with samples at alpha ~ 1 or without."""
     from diner_tpu_torch.ops import composite as plain
     from diner_tpu_torch.ops import composite_cuda
     rows = []
-    for R, K in ((4096, 40), (4096, 64), (4097, 40)):
-        for white in (False, True):
-            for with_g_w in (False, True):
-                rgb, sigma, z, rays = field_case(R, K, 7 * R + K + white)
-                g = torch.Generator(device="cuda").manual_seed(K + with_g_w)
-                g_rgb = torch.randn((1, R, 3), generator=g, device="cuda")
-                g_depth, g_w = ((torch.randn((1, R), generator=g,
-                                             device="cuda"),
-                                 torch.randn((1, R, K), generator=g,
-                                             device="cuda"))
-                                if with_g_w else (None, None))
-                args = (rgb, sigma, z, rays, g_rgb, g_depth, g_w, white)
-                got = composite_cuda.composite_bwd_kernel(*args)
-                torch.cuda.synchronize()
-                ref = plain.composite_bwd(rgb, sigma, z, rays[..., 7],
-                                          *args[4:])
-                err_rgb = max_err(got[:1], ref[:1])
-                err_sigma = max_err(got[1:], ref[1:])
-                scale = float(ref[1].abs().max())
-                row = dict(R=R, K=K, white_bkgd=white,
-                           g_depth_and_g_w=with_g_w,
-                           max_abs_err=max(err_rgb, err_sigma),
-                           err_d_rgb=err_rgb, err_d_sigma=err_sigma,
-                           d_sigma_scale=scale)
-                if (R, K, white) == (4096, 40, False):
-                    row.update(times_ms(
-                        lambda: composite_cuda.composite_bwd_kernel(*args)))
-                    row["plain_ms"] = device_time_ms(
-                        lambda: plain.composite_bwd(rgb, sigma, z,
-                                                    rays[..., 7], *args[4:]))
-                    n_in = R * K * 5 + R * 4      # rgb, sigma, z; far, g_rgb
-                    if with_g_w:
-                        n_in += R * K + R         # g_w, g_depth
-                    n_out = R * K * 4             # d_rgb, d_sigma
-                    t_bytes = 4 * (n_in + n_out) / HBM_BYTES_PER_S
-                    t_ops = (COMPOSITE_BWD_FLOPS_PER_SAMPLE * R * K
-                             / F32_FLOPS_PER_S)
-                    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-                    row["bound_by"] = ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-                emit("kernel_bwd", name="composite_bwd", **row)
-                # d_rgb 1e-5 absolute; d_sigma 1e-4 of its largest value:
-                # the suffix is total − prefix in the kernel, a reverse sum
-                # in the plain version
-                check(err_rgb <= 1e-5 and err_sigma <= 1e-4 * scale,
-                      f"composite_bwd kernel vs plain {row}")
-                rows.append(row)
+    for (R, K), white, with_g_w, contiguous_rgb, saturated in \
+            itertools.product(COMPOSITE_BWD_CASES, (False, True),
+                              (False, True), (False, True), (False, True)):
+        args = composite_bwd_case(R, K, white, with_g_w, contiguous_rgb,
+                                  "cuda", saturated)
+        rgb, sigma, z, rays, g_rgb, g_depth, g_w, _ = args
+        got = composite_cuda.composite_bwd_kernel(*args)
+        torch.cuda.synchronize()
+        ref = plain.composite_bwd(rgb, sigma, z, rays[..., 7], *args[4:])
+        err_rgb = max_err(got[:1], ref[:1])
+        err_sigma = max_err(got[1:], ref[1:])
+        scale = float(ref[1].abs().max())
+        row = dict(R=R, K=K, white_bkgd=white, g_depth_and_g_w=with_g_w,
+                   contiguous_rgb=contiguous_rgb, saturated=saturated,
+                   max_abs_err=max(err_rgb, err_sigma), err_d_rgb=err_rgb,
+                   err_d_sigma=err_sigma, d_sigma_scale=scale,
+                   err_d_sigma_over_scale=err_sigma / max(scale, 1e-30))
+        if (R, K, white, contiguous_rgb, saturated) == (4096, 40, False,
+                                                        False, False):
+            row.update(times_ms(
+                lambda: composite_cuda.composite_bwd_kernel(*args)))
+            row["plain_ms"] = device_time_ms(lambda: plain.composite_bwd(
+                rgb, sigma, z, rays[..., 7], *args[4:]))
+            n_in = R * K * 5 + R * 4      # rgb, sigma, z; far, g_rgb
+            if with_g_w:
+                n_in += R * K + R         # g_w, g_depth
+            n_out = R * K * 4             # d_rgb, d_sigma
+            t_bytes = 4 * (n_in + n_out) / HBM_BYTES_PER_S
+            t_ops = COMPOSITE_BWD_FLOPS_PER_SAMPLE * R * K / F32_FLOPS_PER_S
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        emit("kernel_bwd", name="composite_bwd", **row)
+        # d_rgb 1e-5 absolute; d_sigma 1e-5 of its largest value: the
+        # kernel's T and suffix sums run in tree order within each chunk,
+        # the plain version's sequentially, and neither subtracts
+        check(err_rgb <= 1e-5 and err_sigma <= 1e-5 * scale,
+              f"composite_bwd kernel vs plain {row}")
+        rows.append(row)
     return rows
 
 
@@ -962,6 +1019,262 @@ def phase_train_small_reference(pruned=False):
           f"card vs CPU step: loss {loss_err}, grad {worst} at {name}")
 
 
+TRAIN_LOOP_DIR = OUT_DIR / "train_loop"
+TRAIN_LOOP_HW = (512, 640)  # the DTU image size of configs/train_dtu.yaml
+TRAIN_LOOP_BATCH = 2  # scenes per step; 4 peaks above 40 GB in f32
+
+
+def train_loop_config():
+    """``configs/train_dtu.yaml`` read by the port's ``load_train_config``
+    with only ``data`` replaced (the analytic sphere at the DTU image size:
+    512×640, 4 source views; 8 train and 2 val scenes) and the trainer
+    settings of this phase: 6 steps, a checkpoint every 3, one validation
+    at step 6 over 2 images, a log row every step. Written as JSON (valid
+    YAML) → its path."""
+    from diner_tpu_torch.train.config import load_train_config
+    raw = load_train_config(ROOT / "configs" / "train_dtu.yaml").raw
+
+    def split(n, shuffle):
+        return {"dataset": {"module": "synthetic_sphere",
+                            "kwargs": {"n": n, "H": TRAIN_LOOP_HW[0],
+                                       "W": TRAIN_LOOP_HW[1], "nv": 4}},
+                "dataloader": {"kwargs": {"shuffle": shuffle,
+                                          "batch_size": TRAIN_LOOP_BATCH}}}
+
+    raw["data"] = {"train": split(8, True), "val": split(2, False)}
+    raw["logger"]["kwargs"]["save_dir"] = str(TRAIN_LOOP_DIR / "runs")
+    raw["trainer"]["kwargs"].update(max_steps=6, val_check_interval=6,
+                                    log_every_n_steps=1)
+    raw["checkpointing"]["kwargs"]["every_n_train_steps"] = 3
+    raw["optimizer"]["kwargs"]["n_samples_score_eval"] = 2
+    path = TRAIN_LOOP_DIR / "train_dtu_sphere.yaml"
+    path.write_text(json.dumps(raw, indent=1))
+    return path
+
+
+def state_equal(saved, train_step):
+    """Is the checkpoint's state ``train_step``'s, bit for bit?"""
+    model = train_step.model.state_dict()
+    opt = train_step.optimizer.state_dict()
+    return (saved["step"] == train_step.step
+            and sorted(saved["model"]) == sorted(model)
+            and all(torch.equal(v, model[k].cpu())
+                    for k, v in saved["model"].items())
+            and saved["optimizer"]["param_groups"] == opt["param_groups"]
+            and sorted(saved["optimizer"]["state"]) == sorted(opt["state"])
+            and all(torch.equal(v, opt["state"][i][k].cpu())
+                    for i, st in saved["optimizer"]["state"].items()
+                    for k, v in st.items()))
+
+
+def phase_train_loop():
+    """The training entry point on the card: ``python -m
+    diner_tpu_torch.train`` (a subprocess) takes steps 1-4 of
+    ``train_loop_config()`` at full width (ResNet34, ResnetFC 5×512, 40
+    samples from 1000 candidates, MSE + 0.1·VGG + 1.0·antibias, f32) with
+    checkpoints at 3 and 4; then ``Trainer.fit(max_steps=6)`` in this
+    process resumes from step 4, checkpoints and validates at step 6 (a
+    prediction folder of 2 images, scored). Checks: the step counts; the
+    checkpoints (6 is the fit's final state bit for bit; a fresh TrainStep
+    restored from the CLI's 4 holds it bit for bit, and its step 5 on the
+    fit's batch and generator state gives the fit's step-5 losses and
+    update); finite logged rows; the scored folder; kernel launches per
+    train step (A 1, B 1, C 6) and per validation image (A 80, C 480)."""
+    import shutil
+    import sys
+
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    from diner_tpu_torch.train import checkpoint as ckpt_lib
+    from diner_tpu_torch.train import loop
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.diner import (TrainStep, create_model,
+                                             make_train_step)
+
+    shutil.rmtree(TRAIN_LOOP_DIR, ignore_errors=True)
+    TRAIN_LOOP_DIR.mkdir(parents=True)
+    cfg_path = train_loop_config()
+    run_cfg = load_train_config(cfg_path)
+    ckpt_dir = run_cfg.run_dir / "checkpoints"
+    H, W = TRAIN_LOOP_HW
+    n_chunks = -(-H * W // run_cfg.diner.renderer.ray_chunk)
+
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "diner_tpu_torch.train", str(cfg_path),
+         "DINER", "--max-steps", "4", "--device", "cuda"], cwd=ROOT,
+        capture_output=True,
+        text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    (TRAIN_LOOP_DIR / "cli.log").write_text(cli.stdout + cli.stderr)
+    check(cli.returncode == 0, f"train CLI exited {cli.returncode}: "
+          f"{cli.stderr[-2000:]}")
+    check(ckpt_lib.latest_checkpoint(ckpt_dir) == str(ckpt_dir /
+                                                      "step_00000004"),
+          f"CLI checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
+
+    def counts():
+        return (composite_cuda.launches, composite_cuda.bwd_launches,
+                gather_cuda.launches)
+
+    # per call of the train step and of the eval step: (steps taken
+    # before, launches of A, B and C, seconds to the end of its kernels)
+    calls = {"train": [], "eval": []}
+
+    def record(kind, taken, fn, *args, **kwargs):
+        before, t = counts(), time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls[kind].append((taken, tuple(x - y for x, y in
+                                         zip(counts(), before)),
+                            time.perf_counter() - t))
+        return out
+
+    train_call, make_eval = TrainStep.__call__, loop.make_eval_step
+    # the resumed fit's first step (4 -> 5): its batch, its generator's
+    # state, its losses and the parameters after it
+    step5 = {}
+
+    def params_of(train_step):
+        return torch.cat([p.detach().flatten()
+                          for p in train_step.model.parameters()])
+
+    def spied_train_call(self, batch, generator=None, **kwargs):
+        first = self.step == 4 and not step5
+        if first:
+            step5.update(batch=batch, gen_state=generator.get_state())
+        out = record("train", self.step, train_call, self, batch,
+                     generator=generator, **kwargs)
+        if first:
+            step5.update(losses={k: float(v) for k, v in out.items()},
+                         params=params_of(self))
+        return out
+
+    def spied_make_eval(*args, **kwargs):
+        step = make_eval(*args, **kwargs)
+        return lambda *a, **k: record("eval", None, step, *a, **k)
+
+    TrainStep.__call__ = spied_train_call
+    loop.make_eval_step = spied_make_eval
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    composite_cuda.launches = composite_cuda.bwd_launches = 0
+    gather_cuda.launches = 0
+    try:
+        trainer = loop.Trainer(run_cfg, device="cuda")
+        t1 = time.perf_counter()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ts = trainer.fit(max_steps=6)
+            torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t1
+    finally:
+        TrainStep.__call__, loop.make_eval_step = train_call, make_eval
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    check(ts.step == 6, f"resumed fit ended at step {ts.step}, expected 6")
+    check([c[0] for c in calls["train"]] == [4, 5],
+          f"resumed train steps began at {[c[0] for c in calls['train']]}")
+    check(all(c[1] == (1, 1, 6) for c in calls["train"]),
+          f"kernel A, B, C launches per train step "
+          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6)")
+    check(len(calls["eval"]) == 2 and all(
+        c[1] == (n_chunks, 0, 6 * n_chunks) for c in calls["eval"]),
+        f"launches per validation image {[c[1] for c in calls['eval']]}, "
+        f"expected ({n_chunks}, 0, {6 * n_chunks})")
+
+    names = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
+    check(names == ["step_00000003", "step_00000004", "step_00000006"],
+          f"checkpoints {names}")
+    saved = {n: ckpt_lib.load_state(ckpt_dir / n) for n in names}
+    check(state_equal(saved["step_00000006"], ts),
+          "checkpoint 6 is not the fit's final state bit for bit")
+    check(saved["step_00000003"]["step"] == 3 and not all(
+        torch.equal(v, saved["step_00000004"]["model"][k])
+        for k, v in saved["step_00000003"]["model"].items()),
+        "checkpoint 3 is not step 3's or equals step 4's")
+    # a fresh TrainStep restored from the CLI's checkpoint 4 continues as
+    # the resumed fit did: same losses at step 5 (the forward repeats),
+    # same update (up to the order of the backward's atomic adds)
+    dcfg = run_cfg.diner
+    fresh = make_train_step(
+        create_model(dcfg, step5["batch"], seed=0, device="cuda"), dcfg,
+        init_vgg19(0, device="cuda") if dcfg.w_vgg > 0 else None)
+    ckpt_lib.restore_checkpoint(ckpt_dir / "step_00000004", fresh)
+    restored4 = state_equal(saved["step_00000004"], fresh)
+    check(restored4, "checkpoint 4 not restored bit for bit")
+    params4 = params_of(fresh)
+    gen5 = torch.Generator(device="cuda")
+    gen5.set_state(step5["gen_state"])
+    losses5 = {k: float(v) for k, v in
+               fresh(step5["batch"], generator=gen5).items()}
+    loss_rel_diff = max(abs(losses5[k] - v) / max(abs(v), 1e-30)
+                        for k, v in step5["losses"].items())
+    update_rel_diff = float((params_of(fresh) - step5["params"]).norm()
+                            / (step5["params"] - params4).norm())
+    del fresh, params4, step5["params"]
+    torch.cuda.empty_cache()
+    check(sorted(losses5) == sorted(step5["losses"])
+          and loss_rel_diff <= 1e-6 and update_rel_diff <= 1e-2,
+          f"step 5 from checkpoint 4: losses {losses5} vs the fit's "
+          f"{step5['losses']} (relative {loss_rel_diff}), update relative "
+          f"difference {update_rel_diff}")
+
+    rows = [json.loads(line) for line in (run_cfg.run_dir / "logs" /
+                                          "metrics.jsonl").read_text()
+            .splitlines()]
+    train_rows = [r for r in rows if "total" in r]
+    check([r["step"] for r in train_rows] == [1, 2, 3, 4, 5, 6],
+          f"logged train steps {[r['step'] for r in train_rows]}")
+    check(all(np.isfinite(v) for r in rows for v in r.values()),
+          f"non-finite logged value in {rows}")
+    eval_dir = run_cfg.run_dir / "eval_000006"
+    preds = sorted((eval_dir / "visualizations").glob("*-pred.png"))
+    check(len(preds) == 2, f"prediction folder holds {len(preds)} images")
+    scores = json.loads((eval_dir / "average_scores.json").read_text())
+    keys = ("psnr", "ssim", "l1", "l2", "lpips_proxy")
+    check(all(np.isfinite(scores.get(k, float("nan"))) for k in keys),
+          f"validation scores {scores}")
+
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    from torch.autograd import DeviceType
+    busy_ms = sum(getattr(e, attr) for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    (OUT_DIR / "chip_smoke_train_loop_profile.txt").write_text(
+        events.table(sort_by=attr, row_limit=60))
+    cli_steps = [1 / r["steps_per_sec"] for r in train_rows[:4]]
+    emit("train_loop",
+         config=f"configs/train_dtu.yaml, data: synthetic_sphere {H}x{W} "
+         f"nv=4, batch {TRAIN_LOOP_BATCH}, f32; 6 steps, checkpoints every "
+         "3, validation at 6 over 2 images",
+         rays_per_step=run_cfg.diner.rays_per_step * TRAIN_LOOP_BATCH,
+         cli_s=t_cli, cli_first_step_s=cli_steps[0],
+         s_per_step=statistics.median(cli_steps[1:]),
+         s_per_step_all=[1 / r["steps_per_sec"] for r in train_rows],
+         step_alone_s=[c[2] for c in calls["train"]],
+         validation_image_s=[c[2] for c in calls["eval"]],
+         fit_resume_s=t_fit, peak_mem_bytes=peak,
+         idle_share_fit=1 - busy_ms / (t_fit * 1e3), kernel_ms_fit=busy_ms,
+         launches_composite_fwd=launches[0],
+         launches_composite_bwd=launches[1],
+         launches_row_gather=launches[2],
+         launches_per_step=[c[1] for c in calls["train"]],
+         launches_per_validation_image=[c[1] for c in calls["eval"]],
+         checkpoints=names, restored_4_bit_for_bit=restored4,
+         step5_loss_rel_diff=loss_rel_diff,
+         step5_update_rel_diff=update_rel_diff,
+         losses=[{k: r[k] for k in r if k not in ("step", "steps_per_sec")}
+                 for r in train_rows],
+         val_scores={k: scores[k] for k in keys})
+    check(peak < 40e9, f"train loop peak memory {peak} B, limit 40 GB")
+    return launches
+
+
 def gather_row(table, idx, runs=30, cold=False):
     """Kernel C against ``table[idx]`` (plain) and ``index_select``
     (library) on one input: exactness, device times (``ms``, ``plain_ms``,
@@ -1184,10 +1497,12 @@ def main():
     torch.cuda.empty_cache()
     phase_train_small_reference()
     phase_train_small_reference(pruned=True)
+    torch.cuda.empty_cache()
+    train_loop_l = phase_train_loop()
 
     paths = {"eval_render": eval_l, "eval_render_pairs": pairs_l,
              "eval_render_pruned": pruned_l, "train_steps": train_l,
-             "train_steps_pruned": train_pruned_l}
+             "train_steps_pruned": train_pruned_l, "train_loop": train_loop_l}
 
     def entry(name, row_list, main, replaces, which, library_ms=None):
         by_path = {p: launches[which] for p, launches in paths.items()}
@@ -1216,10 +1531,15 @@ def main():
              cases=[{k: r[k] for k in ("R", "K") + timed if k in r}
                     for r in rows if "ms" in r]),
         # the train step's case: R = 4096, K = 40, only g_rgb
-        entry("composite_bwd", bwd_rows,
-              next(r for r in bwd_rows if "ms" in r
-                   and not r["g_depth_and_g_w"]),
-              "diner_tpu/ops/pallas/composite_pallas.py:54", 1),
+        dict(entry("composite_bwd", bwd_rows,
+                   next(r for r in bwd_rows if "ms" in r
+                        and not r["g_depth_and_g_w"]),
+                   "diner_tpu/ops/pallas/composite_pallas.py:54", 1),
+             err_d_sigma_over_scale={
+                 kind: max(r["err_d_sigma_over_scale"] for r in bwd_rows
+                           if r["saturated"] == sat)
+                 for kind, sat in (("unsaturated", False),
+                                   ("saturated", True))}),
         dict(entry("row_gather", gather_rows, corner,
                    "diner_tpu/ops/pallas/gather_pallas.py:45", 2,
                    library_ms=corner["library_ms"]),

@@ -23,7 +23,8 @@
 // loads go out before this chunk's arithmetic. Each lane computes its
 // sample's delta and alpha; T comes from an exclusive product scan of
 // (1 - alpha + 1e-10) over the warp (__shfl_up_sync, 5 steps), times the
-// product carried from the chunks before, so any K >= 1 works. w is written
+// product carried from the chunks before, so any K >= 1 works. The scan and
+// alpha live in composite_scan.cuh, which kernel B shares. w is written
 // coalesced; the four weighted sums and sum w are reduced with
 // __shfl_xor_sync, and lane 0 writes the ray's outputs.
 //
@@ -38,11 +39,14 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_scan.cuh"
+
 namespace {
+
+using composite::kFull;
 
 constexpr int kRaysPerBlock = 4;
 constexpr int kBlock = 32 * kRaysPerBlock;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Sample {
   float z, z_next, sigma, r, g, b;
@@ -87,18 +91,10 @@ __global__ void __launch_bounds__(kBlock) composite_fwd_kernel(
     const Sample x = next;
     if (k0 + 32 < K) next = load(k + 32);
     const bool valid = k < K;
-    const float alpha =
-        valid ? 1.0f - expf(-(x.z_next - x.z) * fmaxf(x.sigma, 0.0f)) : 0.0f;
-    // inclusive product of (1 - alpha + 1e-10) over lanes 0..lane; lanes
-    // past K contribute 1
-    float incl = valid ? (1.0f - alpha) + 1e-10f : 1.0f;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float y = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl *= y;
-    }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 1.0f;
+    const float alpha = composite::alpha_of(x.z_next - x.z, x.sigma, valid);
+    float chunk_prod;
+    const float excl =
+        composite::transmittance_scan(alpha, valid, lane, &chunk_prod);
     const float w = alpha * (trans * excl);
     if (valid) w_row[k] = w;
     acc_r += w * x.r;
@@ -106,7 +102,7 @@ __global__ void __launch_bounds__(kBlock) composite_fwd_kernel(
     acc_b += w * x.b;
     acc_d += w * x.z;
     wsum += w;
-    trans *= __shfl_sync(kFull, incl, 31);
+    trans *= chunk_prod;
   }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {

@@ -1,1 +1,2 @@
-"""Synthetic scenes for tests and the chip smoke run."""
+"""Data layer: the batching loader, the DTU and analytic-sphere datasets,
+image and depth codecs, and the synthetic sphere scene."""

@@ -3,9 +3,11 @@
 
 Each source under ``diner_tpu_torch/csrc/`` exposes a plain C launcher and
 is compiled for ``sm_90a`` into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``) at first use. The library name carries a hash of
-the source and flags, so an edited source is rebuilt. :func:`launch` calls
-a launcher on PyTorch's current stream. Nothing here runs at import: a
+(listed in ``.gitignore``) at first use, with ``-I`` on ``csrc/`` for the
+headers the sources share (``composite_scan.cuh``, kernels A and B). The
+library name carries a hash of the source, every header under ``csrc/``
+and the flags, so an edited source or header is rebuilt. :func:`launch`
+calls a launcher on PyTorch's current stream. Nothing here runs at import: a
 machine without ``nvcc`` can import every module.
 """
 
@@ -22,6 +24,7 @@ from pathlib import Path
 import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC = "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 SOURCES = {"composite_fwd": "csrc/composite_fwd.cu",
            "composite_bwd": "csrc/composite_bwd.cu",
@@ -41,9 +44,17 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (PKG_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [PKG_DIR / SOURCES[name],
+                 *sorted((PKG_DIR / CSRC).glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> list:
+    """The ``nvcc`` command line that builds kernel ``name`` into ``out``."""
+    return [nvcc, *NVCC_FLAGS, "-I", str(PKG_DIR / CSRC), "-o", str(out),
+            str(PKG_DIR / SOURCES[name])]
 
 
 def build(names=None) -> dict:
@@ -61,9 +72,9 @@ def build(names=None) -> dict:
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(PKG_DIR / SOURCES[name])]
         procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            nvcc_command(name, tmp, nvcc), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     report, failed = {}, []
     for name, (tmp, t0, proc) in procs.items():
         log, _ = proc.communicate()

@@ -1,1 +1,3 @@
-"""Model construction, the train step and the eval step."""
+"""Model construction, the train and eval steps, the YAML config, the
+trainer loop with checkpoints and validation, and the training CLI
+(``python -m diner_tpu_torch.train``)."""

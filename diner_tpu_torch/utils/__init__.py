@@ -1,1 +1,2 @@
-"""Weight bridge from the JAX package's variable trees and resizing."""
+"""Weight bridges from the JAX package's variable trees, resizing, metric
+meters and visualization helpers."""

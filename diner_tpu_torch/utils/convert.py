@@ -11,6 +11,11 @@ flax names, so a path maps to a dotted key 1:1:
   dense kernel (I, O)        → ``weight`` (O, I)
   ``bias`` → ``bias``; BN ``scale`` → ``weight``
   batch_stats ``mean`` / ``var`` → ``running_mean`` / ``running_var``
+
+``lpips_to_state_dict`` bridges the LPIPS parameters of
+``diner_tpu/evaluation/metrics.py`` (``{"vgg": conv tree, "lins": (C,)
+weights per tap}``, e.g. its ``init_lpips_proxy``) to the port's
+``evaluation/metrics.py:LPIPSVGG``.
 """
 
 from __future__ import annotations
@@ -52,4 +57,15 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 value = _kernel(value)
             key = ".".join(path[:-1] + (leaves[path[-1]],))
             sd[key] = torch.tensor(value, dtype=torch.float32)
+    return sd
+
+
+def lpips_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS params (numpy arrays) → a full ``LPIPSVGG`` state_dict."""
+    from diner_tpu_torch.evaluation.metrics import LPIPSVGG
+    sd = LPIPSVGG().state_dict()  # the input normalisation buffers
+    sd.update(flax_to_state_dict({"params": params["vgg"]}))
+    for i, w in enumerate(params["lins"]):
+        sd[f"lin_{i}"] = torch.tensor(np.asarray(w).reshape(-1),
+                                      dtype=torch.float32)
     return sd

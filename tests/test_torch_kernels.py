@@ -1,8 +1,8 @@
-"""Kernels A and C as designed for Hopper: kernel C's regime planner (on the
-CPU), and both kernels against their plain versions at the edges of their
-designs (tests marked ``cuda``, which skip without a card;
-``chip_smoke.py`` runs the same cases in its ``kernel`` and
-``kernel_gather`` phases).
+"""Kernels A, B and C as designed for Hopper: kernel C's regime planner and
+the build plan (on the CPU), and the kernels against their plain versions
+at the edges of their designs (tests marked ``cuda``, which skip without a
+card; ``chip_smoke.py`` runs the same cases in its ``kernel``,
+``kernel_bwd`` and ``kernel_gather`` phases).
 
 Kernel C must equal ``index_select`` bit for bit in every regime (narrow
 rows, wide rows, a thread per unit): every row width of the path and
@@ -11,16 +11,23 @@ indices, P = 1, P no multiple of the rows a lane or warp takes, R = 1 and
 out-of-range indices (clamped). Kernel A must stay within 1e-5 of the plain
 composite at K around one and two 32-sample chunks, with R no multiple of
 the rays per block, with and without a white background, for the field's
-strided views and for a contiguous rgb.
+strided views and for a contiguous rgb. Kernel B must stay within 1e-5 of
+the plain ``composite_bwd`` on d_rgb and within 1e-5 of its largest value
+on d_sigma (its T and suffix sums are summed in tree order within each
+chunk) on ``chip_smoke.COMPOSITE_BWD_CASES`` (K around one and two chunks,
+on both sides of the register path's K <= 64, R = 4096 and 4097, and the
+train loop's 8192 x 40), white or not, with only g_rgb or with g_depth and
+g_w, strided or contiguous rgb, with samples at alpha ~ 1 or without.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import gather_edge_tables
+from chip_smoke import (COMPOSITE_BWD_CASES, composite_bwd_case,
+                        gather_edge_tables)
 from diner_tpu_torch.ops import composite as plain
-from diner_tpu_torch.ops import composite_cuda, gather_cuda
+from diner_tpu_torch.ops import composite_cuda, cuda_build, gather_cuda
 
 OUT_ADDR = 1 << 20  # the wrapper's outputs come from torch.empty: aligned
 
@@ -146,3 +153,46 @@ def test_composite_kernel_across_chunks(cuda, K, white, contiguous_rgb):
     for a, b in zip(got, ref):  # products and sums in another order
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K", COMPOSITE_BWD_CASES)
+@pytest.mark.parametrize("white", [False, True])
+@pytest.mark.parametrize("with_g_w", [False, True])
+@pytest.mark.parametrize("contiguous_rgb", [False, True])
+@pytest.mark.parametrize("saturated", [False, True])
+def test_composite_bwd_kernel_edges(cuda, R, K, white, with_g_w,
+                                    contiguous_rgb, saturated):
+    args = composite_bwd_case(R, K, white, with_g_w, contiguous_rgb, "cuda",
+                              saturated)
+    rgb, sigma, z, rays = args[:4]
+    before = composite_cuda.bwd_launches
+    got = composite_cuda.composite_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert composite_cuda.bwd_launches == before + 1
+    ref = plain.composite_bwd(rgb, sigma, z, rays[..., 7], *args[4:])
+    np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(),
+                               atol=1e-5, rtol=0)
+    scale = float(ref[1].abs().max())
+    np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].cpu().numpy(),
+                               atol=1e-5 * scale, rtol=0)
+
+
+# ------------------------------------------------------- the build plan
+
+def test_build_plan_hashes_the_shared_header(tmp_path, monkeypatch):
+    """The headers under ``csrc/`` (``composite_scan.cuh``, included by
+    kernels A and B) enter every library's hash, so an edited header
+    rebuilds them, and nvcc gets ``-I`` on ``csrc/``."""
+    import shutil
+    pkg = tmp_path / "pkg"
+    shutil.copytree(cuda_build.PKG_DIR / cuda_build.CSRC, pkg / "csrc")
+    monkeypatch.setattr(cuda_build, "PKG_DIR", pkg)
+    before = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    header = pkg / "csrc" / "composite_scan.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    assert all(after[n] != before[n] for n in cuda_build.SOURCES)
+    cmd = cuda_build.nvcc_command("composite_bwd", tmp_path / "x.so")
+    assert cmd[cmd.index("-I") + 1] == str(pkg / "csrc")
+    assert cmd[-1] == str(pkg / "csrc" / "composite_bwd.cu")

@@ -33,6 +33,12 @@ def _port_modules():
 
 
 def test_import_pulls_in_no_jax():
+    modules = _port_modules()
+    for m in ("train.config", "train.loop", "train.checkpoint",
+              "train.__main__", "data.loader", "data.io", "data.dtu",
+              "data.synthetic_dataset", "evaluation.metrics",
+              "evaluation.suite", "utils.meters", "utils.visual"):
+        assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -78,6 +84,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_vgg19()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from diner_tpu_torch.evaluation.metrics import init_lpips_proxy
+    from diner_tpu_torch.evaluation.suite import evaluate_folder
+    from diner_tpu_torch.train.__main__ import main as train_main
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.loop import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_train_config(ROOT / "configs" / "train_synthetic.yaml")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main([str(ROOT / "configs" / "train_synthetic.yaml")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lpips_proxy()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_folder(tmp_path, tmp_path / "scores")
 
 
 def test_kernel_build_goes_to_ignored_build_dir():
@@ -196,8 +220,9 @@ def test_bwd_kernel_matches_plain_version(cuda, R, K, white, with_g_w):
     assert composite_cuda.bwd_launches == before + 1
     ref = plain.composite_bwd(out[..., :3], out[..., 3], z, rays[..., 7],
                               g_rgb, g_depth, g_w, white)
-    # d_rgb 1e-5 absolute; d_sigma 1e-4 of its largest value (the suffix
-    # is total − prefix here, a reverse sum in the plain version)
+    # d_rgb 1e-5 absolute; d_sigma 1e-4 of its largest value (T and the
+    # suffix sums run in tree order within each chunk here, sequentially
+    # in the plain version)
     np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].cpu().numpy(),
                                atol=1e-5, rtol=0)
     scale = float(ref[1].abs().max())
