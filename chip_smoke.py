@@ -6,7 +6,8 @@ Builds every CUDA kernel of the port from the sources in this checkout
 row gather), holds each against its plain PyTorch version on the card
 (kernel B at K = 1-100 around its 32-sample chunks and its register path,
 R = 4096 and 4097, white or not, with and without g_depth and g_w, strided
-or contiguous rgb), then
+or contiguous rgb, random samples, samples at alpha ~ 1 and a large
+|prefix| before the later samples), then
 drives the port's paths through its entry points, with the launch counts
 set to 0 just before each and read just after:
 
@@ -32,15 +33,32 @@ set to 0 just before each and read just after:
   moved, a 1024-ray f32 step through the kernels against the same step
   through the plain composite, and small steps on the card against the
   same steps on the CPU.
+- inference (``predict``): ``python -m diner_tpu_torch.predict`` on
+  ``configs/evaluate_diner_on_dtu.yaml`` with ``data`` replaced by the
+  sphere at 512×640 (its full width, f32) renders and scores 4 validation
+  images from a reference Lightning ``.ckpt``, at 64 samples and with
+  ``--nsamples 32``; ``python -m diner_tpu_torch.evaluate`` re-scores the
+  first folder and ``compare_evaluations`` compares both. Checks: the
+  loaded weights are the checkpoint's bit for bit, 4 files per sample,
+  finite scores, ``comparison.json`` names both, A 80 and C 480 launches
+  per image.
+- pretrained weights (``pretrained``): seeded ``.pth`` files in the
+  torchvision / lpips schemas go through ``python -m
+  diner_tpu_torch.import_pretrained``; with ``DINER_TPU_PRETRAINED`` set in
+  this phase only, ``create_model`` grafts ResNet34 (conv1's RGB slice the
+  file's, its PE channels the seeded draw's), VGG19 loads, and
+  ``evaluate_folder`` reports ``lpips``, not ``lpips_proxy``.
 - the training entry point (``train_loop``): ``configs/train_dtu.yaml``
-  through the port's ``load_train_config`` with only ``data`` replaced by
-  the sphere at 512×640 (4 views, 2 scenes a step, f32): ``python -m
-  diner_tpu_torch.train`` takes steps 1-4 in a subprocess, then
-  ``Trainer.fit`` resumes to step 6 in this process, checkpointing and
-  validating there. Checks: step counts, every checkpoint restoring bit
-  for bit, finite logged rows, a scored prediction folder of 2 images,
-  kernels A, B and C once, once and 6 times per step, A 80 and C 480 times
-  per validation image, peak memory under 40 GB.
+  through the port's ``load_train_config`` with ``data`` replaced by the
+  sphere at 512×640 (4 views, the config's 4 scenes a step, f32) and a
+  camera sweep cut to 3 frames: ``python -m diner_tpu_torch.train`` takes
+  steps 1-4 in a subprocess, then ``Trainer.fit`` resumes to step 6 in
+  this process, checkpointing and validating there. Checks: step counts,
+  every checkpoint restoring bit for bit, finite logged rows, a scored
+  prediction folder of 2 images, the sweep's animation, kernels A, B and C
+  once, once and 6 times per step, A 80 and C 480 times per validation or
+  sweep image, the CLI's and the fit's peak allocation each within 0.95
+  of the card's memory.
 
 Profiler passes (with each port kernel's summed device time) and
 per-layer CUDA-event timings say where the time goes. A kernel's ``ms``,
@@ -192,6 +210,7 @@ def phase_build():
             "ptxas": [ln.strip() for ln in r["log"].splitlines()
                       if "registers" in ln or "spill" in ln]}
         for n, r in report.items()})
+    return seconds
 
 
 def field_case(R, K, seed, contiguous_rgb=False, device="cuda"):
@@ -216,11 +235,26 @@ COMPOSITE_CASES = ((4096, 64), (4096, 40), (4097, 1), (4097, 31), (4097, 32),
                    (4097, 33), (4097, 40), (4097, 64), (4097, 100))
 
 
+def train_loop_composite_shape():
+    """(R, K) that kernels A and B get once per step of the ``train_loop``
+    phase: ``TRAIN_LOOP_BATCH`` scenes of ``configs/train_dtu.yaml``'s
+    ``rays_per_step`` rays (the kernels merge the scene and ray axes), its
+    ``n_samples`` samples each. Both kernels' checks add this case, so a
+    change of the batch or the config moves it with them."""
+    from diner_tpu_torch.train.config import load_train_config
+    dcfg = load_train_config(ROOT / "configs" / "train_dtu.yaml").diner
+    return TRAIN_LOOP_BATCH * dcfg.rays_per_step, dcfg.renderer.n_samples
+
+
 def phase_kernel():
+    """Kernel A against ``composite`` on the card, at every case of
+    ``COMPOSITE_CASES`` and the train loop's ``train_loop_composite_shape``,
+    white background or not, for the field's strided rgb and a contiguous
+    one."""
     from diner_tpu_torch.ops import composite as plain
     from diner_tpu_torch.ops import composite_cuda
     rows = []
-    for R, K in COMPOSITE_CASES:
+    for R, K in COMPOSITE_CASES + (train_loop_composite_shape(),):
         for white in (False, True):
             for contiguous_rgb in (False, True):
                 args = field_case(R, K, R + K + white, contiguous_rgb)
@@ -253,8 +287,9 @@ def phase_kernel():
 # (R, K) of kernel B's checks: K around one and two 32-sample chunks (the
 # register path holds K <= 64; 65 and 100 take the shared-memory path),
 # the training step's 40 and the eval shape's 64, each at R = 4096 and at
-# R no multiple of the rays per block, and the train loop's two scenes a
-# step (8192 x 40, where half a warp per ray was kept); timed at (4096, 40)
+# R no multiple of the rays per block, and two scenes of the training step
+# (8192 x 40, where half a warp per ray was kept); timed at (4096, 40).
+# phase_kernel_bwd adds the train loop's train_loop_composite_shape()
 COMPOSITE_BWD_CASES = tuple((R, K) for R in (4096, 4097)
                             for K in (1, 31, 32, 33, 40, 63, 64, 65, 100)) \
     + ((8192, 40),)
@@ -282,17 +317,41 @@ def saturate(sigma, z, far, g):
                    * 40 * K)[deep]
 
 
+FRONT_SAMPLES = 16  # the dense run of front_load
+
+
+def front_load(sigma, z, g):
+    """Puts a large |prefix| before the later samples (in place): on every
+    ray the first ``FRONT_SAMPLES`` samples move to a run 1e-5 apart just
+    before sample 16, with sigma * delta in [0.8, 1.2] each, so they hold
+    all but about e^-16 of the ray's weight while their own d_sigma (a
+    factor delta = 1e-5) stays small. For every later sample S_k is then
+    about 1e-7 of sum_j dL/dw_j * w_j: total - prefix_k cancels there to
+    the last digits, and its error, times that sample's delta (about
+    0.04), is some 1e-3 of the largest d_sigma in an f32 emulation, where
+    a suffix sum stays within some 1e-7. Needs K > ``FRONT_SAMPLES``."""
+    R, K = sigma.shape[-2:]
+    m = FRONT_SAMPLES
+    dev = sigma.device
+    z[..., :m] = z[..., m:m + 1] - 1e-5 * (m - torch.arange(m, device=dev))
+    sigma[..., :m] = (0.8 + 0.4 * torch.rand((1, R, m), generator=g,
+                                             device=dev)) / 1e-5
+
+
 def composite_bwd_case(R, K, white, with_g_w, contiguous_rgb, device,
-                       saturated=False):
+                       saturated=False, front_loaded=False):
     """Kernel B's arguments for one case: the field's views (or a
     contiguous rgb) and seeded cotangents; g_depth and g_w are None (as the
     train step hands them) unless ``with_g_w``; ``saturated``: samples at
-    alpha ~ 1 (``saturate``)."""
+    alpha ~ 1 (``saturate``); ``front_loaded``: a large |prefix| before
+    the later samples (``front_load``)."""
     rgb, sigma, z, rays = field_case(R, K, 7 * R + K + white,
                                      contiguous_rgb, device)
     g = torch.Generator(device=device).manual_seed(K + with_g_w)
     if saturated:
         saturate(sigma, z, rays[..., 7], g)
+    if front_loaded:
+        front_load(sigma, z, g)
     g_rgb = torch.randn((1, R, 3), generator=g, device=device)
     g_depth, g_w = ((torch.randn((1, R), generator=g, device=device),
                      torch.randn((1, R, K), generator=g, device=device))
@@ -300,20 +359,33 @@ def composite_bwd_case(R, K, white, with_g_w, contiguous_rgb, device,
     return rgb, sigma, z, rays, g_rgb, g_depth, g_w, white
 
 
+# the input patterns of kernel B's checks: plain random samples, samples
+# at alpha ~ 1 (saturate) and a large |prefix| before the later samples
+# (front_load, where K > FRONT_SAMPLES)
+BWD_PATTERNS = ("random", "saturated", "front_loaded")
+
+
 def phase_kernel_bwd():
     """Kernel B against ``composite_bwd`` on the card, at every case of
-    ``COMPOSITE_BWD_CASES``, white background or not, with only g_rgb (the
+    ``COMPOSITE_BWD_CASES`` and the train loop's
+    ``train_loop_composite_shape``, white background or not, with only g_rgb (the
     train step's case: its depth and weights outputs are unused) or with
     g_depth and g_w too, for the field's strided rgb and a contiguous one,
-    with samples at alpha ~ 1 or without."""
+    with each of ``BWD_PATTERNS``."""
     from diner_tpu_torch.ops import composite as plain
     from diner_tpu_torch.ops import composite_cuda
     rows = []
-    for (R, K), white, with_g_w, contiguous_rgb, saturated in \
-            itertools.product(COMPOSITE_BWD_CASES, (False, True),
-                              (False, True), (False, True), (False, True)):
+    for (R, K), white, with_g_w, contiguous_rgb, pattern in \
+            itertools.product(COMPOSITE_BWD_CASES
+                              + (train_loop_composite_shape(),),
+                              (False, True),
+                              (False, True), (False, True), BWD_PATTERNS):
+        if pattern == "front_loaded" and K <= FRONT_SAMPLES:
+            continue
+        saturated = pattern == "saturated"
         args = composite_bwd_case(R, K, white, with_g_w, contiguous_rgb,
-                                  "cuda", saturated)
+                                  "cuda", saturated,
+                                  pattern == "front_loaded")
         rgb, sigma, z, rays, g_rgb, g_depth, g_w, _ = args
         got = composite_cuda.composite_bwd_kernel(*args)
         torch.cuda.synchronize()
@@ -323,11 +395,12 @@ def phase_kernel_bwd():
         scale = float(ref[1].abs().max())
         row = dict(R=R, K=K, white_bkgd=white, g_depth_and_g_w=with_g_w,
                    contiguous_rgb=contiguous_rgb, saturated=saturated,
+                   pattern=pattern,
                    max_abs_err=max(err_rgb, err_sigma), err_d_rgb=err_rgb,
                    err_d_sigma=err_sigma, d_sigma_scale=scale,
                    err_d_sigma_over_scale=err_sigma / max(scale, 1e-30))
-        if (R, K, white, contiguous_rgb, saturated) == (4096, 40, False,
-                                                        False, False):
+        if (R, K, white, contiguous_rgb, pattern) == (4096, 40, False,
+                                                      False, "random"):
             row.update(times_ms(
                 lambda: composite_cuda.composite_bwd_kernel(*args)))
             row["plain_ms"] = device_time_ms(lambda: plain.composite_bwd(
@@ -1021,32 +1094,41 @@ def phase_train_small_reference(pruned=False):
 
 TRAIN_LOOP_DIR = OUT_DIR / "train_loop"
 TRAIN_LOOP_HW = (512, 640)  # the DTU image size of configs/train_dtu.yaml
-TRAIN_LOOP_BATCH = 2  # scenes per step; 4 peaks above 40 GB in f32
+TRAIN_LOOP_BATCH = 4  # scenes per step, configs/train_dtu.yaml's own
+# validation's camera sweep, cut from the default 30 frames of 4 sweeps
+# (120 f32 renders) to one sweep of 3 frames
+TRAIN_LOOP_SWEEP = {"nframes": 3, "n_cam_sweeps": 1}
+# the train loop's peak allocation, in the CLI and in the resumed fit, may
+# take this share of the card's memory: the rest is the CUDA context's and
+# the caching allocator's headroom
+MEMORY_SHARE_LIMIT = 0.95
+CLI_PEAK_TAG = "cli_peak_mem_bytes="
+# ``python -m diner_tpu_torch.train ARGS`` that prints the process's peak
+# allocation after the run
+TRAIN_CLI_WITH_PEAK = (
+    "import sys, torch\n"
+    "from diner_tpu_torch.train.__main__ import main\n"
+    "main(sys.argv[1:])\n"
+    f"print('{CLI_PEAK_TAG}' + str(torch.cuda.max_memory_allocated()))\n")
 
 
 def train_loop_config():
     """``configs/train_dtu.yaml`` read by the port's ``load_train_config``
     with only ``data`` replaced (the analytic sphere at the DTU image size:
-    512×640, 4 source views; 8 train and 2 val scenes) and the trainer
-    settings of this phase: 6 steps, a checkpoint every 3, one validation
-    at step 6 over 2 images, a log row every step. Written as JSON (valid
-    YAML) → its path."""
+    512×640, 4 source views; 8 train and 2 val scenes, the config's batch
+    of 4 scenes) and the trainer settings of this phase: 6 steps, a
+    checkpoint every 3, one validation at step 6 over 2 images with a
+    camera sweep of ``TRAIN_LOOP_SWEEP``, a log row every step. Written as
+    JSON (valid YAML) → its path."""
     from diner_tpu_torch.train.config import load_train_config
     raw = load_train_config(ROOT / "configs" / "train_dtu.yaml").raw
-
-    def split(n, shuffle):
-        return {"dataset": {"module": "synthetic_sphere",
-                            "kwargs": {"n": n, "H": TRAIN_LOOP_HW[0],
-                                       "W": TRAIN_LOOP_HW[1], "nv": 4}},
-                "dataloader": {"kwargs": {"shuffle": shuffle,
-                                          "batch_size": TRAIN_LOOP_BATCH}}}
-
-    raw["data"] = {"train": split(8, True), "val": split(2, False)}
+    raw["data"] = sphere_data(8, 2, TRAIN_LOOP_BATCH)
     raw["logger"]["kwargs"]["save_dir"] = str(TRAIN_LOOP_DIR / "runs")
     raw["trainer"]["kwargs"].update(max_steps=6, val_check_interval=6,
                                     log_every_n_steps=1)
     raw["checkpointing"]["kwargs"]["every_n_train_steps"] = 3
     raw["optimizer"]["kwargs"]["n_samples_score_eval"] = 2
+    raw["optimizer"]["kwargs"]["cam_sweep_settings"] = TRAIN_LOOP_SWEEP
     path = TRAIN_LOOP_DIR / "train_dtu_sphere.yaml"
     path.write_text(json.dumps(raw, indent=1))
     return path
@@ -1071,15 +1153,20 @@ def phase_train_loop():
     """The training entry point on the card: ``python -m
     diner_tpu_torch.train`` (a subprocess) takes steps 1-4 of
     ``train_loop_config()`` at full width (ResNet34, ResnetFC 5×512, 40
-    samples from 1000 candidates, MSE + 0.1·VGG + 1.0·antibias, f32) with
-    checkpoints at 3 and 4; then ``Trainer.fit(max_steps=6)`` in this
-    process resumes from step 4, checkpoints and validates at step 6 (a
-    prediction folder of 2 images, scored). Checks: the step counts; the
-    checkpoints (6 is the fit's final state bit for bit; a fresh TrainStep
-    restored from the CLI's 4 holds it bit for bit, and its step 5 on the
-    fit's batch and generator state gives the fit's step-5 losses and
-    update); finite logged rows; the scored folder; kernel launches per
-    train step (A 1, B 1, C 6) and per validation image (A 80, C 480)."""
+    samples from 1000 candidates, MSE + 0.1·VGG + 1.0·antibias, f32, 4
+    scenes a step) with checkpoints at 3 and 4; then
+    ``Trainer.fit(max_steps=6)`` in this process resumes from step 4,
+    checkpoints and validates at step 6 (a prediction folder of 2 images,
+    scored, and one camera sweep of 3 frames: cut from 4 sweeps of 30, see
+    ``TRAIN_LOOP_SWEEP``). Checks: the step counts; the checkpoints (6 is
+    the fit's final state bit for bit; a fresh TrainStep restored from the
+    CLI's 4 holds it bit for bit, and its step 5 on the fit's batch and
+    generator state gives the fit's step-5 losses and update); finite
+    logged rows; the scored folder; the sweep's animation (2·3 − 1 frames
+    of 200 ms) and source views; kernel launches per train step (A 1, B 1,
+    C 6) and per validation or sweep image (A 80, C 480); the peak
+    allocation of the CLI and of the resumed fit each within
+    ``MEMORY_SHARE_LIMIT`` of the card's memory."""
     import shutil
     import sys
 
@@ -1099,16 +1186,19 @@ def phase_train_loop():
     H, W = TRAIN_LOOP_HW
     n_chunks = -(-H * W // run_cfg.diner.renderer.ray_chunk)
 
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()  # the CLI needs all but the context's memory
     t0 = time.perf_counter()
     cli = subprocess.run(
-        [sys.executable, "-m", "diner_tpu_torch.train", str(cfg_path),
-         "DINER", "--max-steps", "4", "--device", "cuda"], cwd=ROOT,
-        capture_output=True,
-        text=True, timeout=600)
+        [sys.executable, "-c", TRAIN_CLI_WITH_PEAK, str(cfg_path), "DINER",
+         "--max-steps", "4", "--device", "cuda"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
     t_cli = time.perf_counter() - t0
     (TRAIN_LOOP_DIR / "cli.log").write_text(cli.stdout + cli.stderr)
     check(cli.returncode == 0, f"train CLI exited {cli.returncode}: "
           f"{cli.stderr[-2000:]}")
+    cli_peak = int(cli.stdout.split(CLI_PEAK_TAG)[-1].split()[0])
     check(ckpt_lib.latest_checkpoint(ckpt_dir) == str(ckpt_dir /
                                                       "step_00000004"),
           f"CLI checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
@@ -1173,6 +1263,8 @@ def phase_train_loop():
         TrainStep.__call__, loop.make_eval_step = train_call, make_eval
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    mem_limit = int(MEMORY_SHARE_LIMIT * total_mem)
 
     check(ts.step == 6, f"resumed fit ended at step {ts.step}, expected 6")
     check([c[0] for c in calls["train"]] == [4, 5],
@@ -1180,10 +1272,12 @@ def phase_train_loop():
     check(all(c[1] == (1, 1, 6) for c in calls["train"]),
           f"kernel A, B, C launches per train step "
           f"{[c[1] for c in calls['train']]}, expected (1, 1, 6)")
-    check(len(calls["eval"]) == 2 and all(
+    n_sweep = TRAIN_LOOP_SWEEP["nframes"] * TRAIN_LOOP_SWEEP["n_cam_sweeps"]
+    check(len(calls["eval"]) == 2 + n_sweep and all(
         c[1] == (n_chunks, 0, 6 * n_chunks) for c in calls["eval"]),
-        f"launches per validation image {[c[1] for c in calls['eval']]}, "
-        f"expected ({n_chunks}, 0, {6 * n_chunks})")
+        f"launches per validation and sweep image "
+        f"{[c[1] for c in calls['eval']]}, expected 2 + {n_sweep} times "
+        f"({n_chunks}, 0, {6 * n_chunks})")
 
     names = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
     check(names == ["step_00000003", "step_00000004", "step_00000006"],
@@ -1237,6 +1331,11 @@ def phase_train_loop():
     keys = ("psnr", "ssim", "l1", "l2", "lpips_proxy")
     check(all(np.isfinite(scores.get(k, float("nan"))) for k in keys),
           f"validation scores {scores}")
+    sweep = sweep_files(eval_dir / "cam_sweeps")
+    check(sweep["names"] == ["sphere-val-0000-ref_imgs.jpg",
+                             "sphere-val-0000.gif"]
+          and sweep["duration_ms"] == (2 * TRAIN_LOOP_SWEEP["nframes"] - 1)
+          * 200, f"camera sweep files {sweep}")
 
     events = prof.key_averages()
     attr = ("self_device_time_total"
@@ -1251,14 +1350,16 @@ def phase_train_loop():
     emit("train_loop",
          config=f"configs/train_dtu.yaml, data: synthetic_sphere {H}x{W} "
          f"nv=4, batch {TRAIN_LOOP_BATCH}, f32; 6 steps, checkpoints every "
-         "3, validation at 6 over 2 images",
+         "3, validation at 6 over 2 images, camera sweep "
+         f"{TRAIN_LOOP_SWEEP}",
          rays_per_step=run_cfg.diner.rays_per_step * TRAIN_LOOP_BATCH,
          cli_s=t_cli, cli_first_step_s=cli_steps[0],
          s_per_step=statistics.median(cli_steps[1:]),
          s_per_step_all=[1 / r["steps_per_sec"] for r in train_rows],
          step_alone_s=[c[2] for c in calls["train"]],
-         validation_image_s=[c[2] for c in calls["eval"]],
+         validation_image_s=[c[2] for c in calls["eval"][:2]],
          fit_resume_s=t_fit, peak_mem_bytes=peak,
+         cli_peak_mem_bytes=cli_peak,
          idle_share_fit=1 - busy_ms / (t_fit * 1e3), kernel_ms_fit=busy_ms,
          launches_composite_fwd=launches[0],
          launches_composite_bwd=launches[1],
@@ -1270,9 +1371,400 @@ def phase_train_loop():
          step5_update_rel_diff=update_rel_diff,
          losses=[{k: r[k] for k in r if k not in ("step", "steps_per_sec")}
                  for r in train_rows],
-         val_scores={k: scores[k] for k in keys})
-    check(peak < 40e9, f"train loop peak memory {peak} B, limit 40 GB")
+         val_scores={k: scores[k] for k in keys},
+         sweep_image_s=[c[2] for c in calls["eval"][2:]], cam_sweep=sweep,
+         card_memory_bytes=total_mem, memory_limit_bytes=mem_limit,
+         peak_over_40gb_target=max(peak, cli_peak) > 40e9)
+    check(max(peak, cli_peak) <= mem_limit,
+          f"train loop peak memory: CLI {cli_peak} B, resumed fit {peak} B, "
+          f"limit {mem_limit} B ({MEMORY_SHARE_LIMIT} of the card's "
+          f"{total_mem} B)")
     return launches
+
+
+def sweep_files(sweep_dir):
+    """The files of a camera-sweep directory and its first GIF's frames
+    and summed duration (PIL folds a frame equal to the one before into
+    its duration, so the duration counts the frames written)."""
+    from PIL import Image
+    names = sorted(p.name for p in sweep_dir.iterdir())
+    gifs = sorted(sweep_dir.glob("*.gif"))
+    if not gifs:
+        return dict(names=names, gif_frames=0, duration_ms=0)
+    durations = []
+    with Image.open(gifs[0]) as im:
+        for f in range(im.n_frames):
+            im.seek(f)
+            durations.append(im.info["duration"])
+        size = im.size
+    return dict(names=names, gif_frames=len(durations),
+                duration_ms=sum(durations), gif_size=size)
+
+
+PREDICT_DIR = OUT_DIR / "predict"
+PREDICT_N = 4  # validation images per prediction folder: 3 warm ones
+
+
+def sphere_data(n_train, n_val, batch_size):
+    """The ``data`` block of a config on the analytic sphere at the DTU
+    image size (``TRAIN_LOOP_HW``, 4 source views)."""
+    def split(n, shuffle):
+        return {"dataset": {"module": "synthetic_sphere",
+                            "kwargs": {"n": n, "H": TRAIN_LOOP_HW[0],
+                                       "W": TRAIN_LOOP_HW[1], "nv": 4}},
+                "dataloader": {"kwargs": {"shuffle": shuffle,
+                                          "batch_size": batch_size}}}
+    return {"train": split(n_train, True), "val": split(n_val, False)}
+
+
+def predict_config():
+    """``configs/evaluate_diner_on_dtu.yaml`` with ``data`` swapped for the
+    sphere (its full width: ResNet34, ResnetFC 5×512, 64 samples from 1000
+    candidates, 24 Gaussians, f32 as the config sets no dtype), written as
+    JSON → its path."""
+    from diner_tpu_torch.train.config import load_train_config
+    raw = load_train_config(ROOT / "configs" /
+                            "evaluate_diner_on_dtu.yaml").raw
+    raw["data"] = sphere_data(1, PREDICT_N + 1, 1)
+    raw["logger"]["kwargs"]["save_dir"] = str(PREDICT_DIR / "runs")
+    path = PREDICT_DIR / "evaluate_diner_sphere.yaml"
+    path.write_text(json.dumps(raw, indent=1))
+    return path
+
+
+def reference_key(key):
+    """The reference Lightning DINER's key of a port ``PixelNeRF`` key
+    (``nerf.encoder.model.*`` torchvision names, ``nerf.mlp_fine.*``)."""
+    import re
+    if key.startswith("encoder.resnet."):
+        k = key[len("encoder.resnet."):]
+        k = re.sub(r"^(layer\d)_(\d+)\.downsample_conv\.",
+                   r"\1.\2.downsample.0.", k)
+        k = re.sub(r"^(layer\d)_(\d+)\.downsample_bn\.",
+                   r"\1.\2.downsample.1.", k)
+        return "nerf.encoder.model." + re.sub(r"^(layer\d)_(\d+)\.",
+                                              r"\1.\2.", k)
+    k = re.sub(r"^lin_z_(\d+)\.", r"lin_z.\1.", key[len("mlp."):])
+    return "nerf.mlp_fine." + re.sub(r"^block_(\d+)\.", r"blocks.\1.", k)
+
+
+def lightning_checkpoint(cfg, batch, path):
+    """A reference-schema Lightning ``.ckpt`` of a seeded full-width model
+    (seed 1, BN statistics and the zero-initialized ``fc_1`` drawn too),
+    with the entries the bridge drops (``num_batches_tracked``,
+    torchvision's ``fc`` head, the positional encodings' buffers) →
+    {reference key: tensor} of its weights."""
+    from diner_tpu_torch.train.diner import create_model
+    model = create_model(cfg, batch, seed=1, device="cuda")
+    g = torch.Generator().manual_seed(11)
+    sd = {}
+    for k, v in model.state_dict().items():
+        v = v.cpu()
+        if k.endswith("running_mean") or k.endswith("fc_1.weight"):
+            v = 0.05 * torch.randn(v.shape, generator=g)
+        elif k.endswith("running_var"):
+            v = 0.5 + torch.rand(v.shape, generator=g)
+        sd[reference_key(k)] = v.clone()
+    weights = dict(sd)
+    sd["nerf.encoder.model.bn1.num_batches_tracked"] = torch.tensor(1000)
+    sd["nerf.encoder.model.fc.weight"] = torch.zeros(1000, 512)
+    sd["nerf.code._freqs"] = torch.ones(1, 12, 1)
+    torch.save({"state_dict": sd, "epoch": 10, "global_step": 30000}, path)
+    return weights
+
+
+def folder_files(folder):
+    """{sample stem: sorted suffixes} of a prediction folder's images."""
+    from diner_tpu_torch.evaluation import suite
+    suffixes = (suite.PRED_SUFFIX, suite.GT_SUFFIX, suite.REF_SUFFIX,
+                suite.DEPTH_SUFFIX)
+    stems = {}
+    for p in folder.iterdir():
+        for x in suffixes:
+            if p.name.endswith(x):
+                stems.setdefault(p.name[:-len(x)], []).append(x)
+    return {k: sorted(v) for k, v in stems.items()}, sorted(suffixes)
+
+
+def phase_predict(smi, build_s):
+    """The inference entry points on the card: ``python -m
+    diner_tpu_torch.predict`` (``main(argv)`` in this process, so the
+    launch counts and the loaded model can be read) renders and scores
+    ``PREDICT_N`` validation images of ``predict_config()`` from a
+    reference Lightning ``.ckpt``, at 64 samples and again with
+    ``--nsamples 32`` (12 Gaussians); ``python -m diner_tpu_torch.evaluate``
+    re-scores the first folder; ``compare_evaluations`` compares the two.
+    Checks: the loaded weights are the checkpoint's bit for bit; 4 files
+    per sample under the suite's suffixes; finite scores, the evaluate
+    CLI's equal to predict's; ``comparison.json`` names both models;
+    kernels A 80 and C 480 times per image (B never). Returns the
+    launches of each run and the first folder."""
+    import shutil
+
+    from diner_tpu_torch import evaluate, predict
+    from diner_tpu_torch.evaluation.suite import compare_evaluations
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    from diner_tpu_torch.train import diner
+    from diner_tpu_torch.train.config import load_train_config
+
+    shutil.rmtree(PREDICT_DIR, ignore_errors=True)
+    PREDICT_DIR.mkdir(parents=True)
+    cfg_path = predict_config()
+    dcfg = load_train_config(cfg_path).diner
+    from diner_tpu_torch.data.synthetic_dataset import SphereDataset
+    H, W = TRAIN_LOOP_HW
+    sample = SphereDataset("val", n=1, H=H, W=W, nv=4)[0]
+    batch = {k: v[None] for k, v in sample.items()
+             if isinstance(v, np.ndarray)}
+    ckpt = PREDICT_DIR / "DINER.ckpt"
+    weights = lightning_checkpoint(dcfg, batch, ckpt)
+    n_chunks = -(-H * W // dcfg.renderer.ray_chunk)
+
+    def counts():
+        return (composite_cuda.launches, composite_cuda.bwd_launches,
+                gather_cuda.launches)
+
+    make_eval = diner.make_eval_step
+    results = {}
+    for name, extra in (("nsamples64", []), ("nsamples32",
+                                             ["--nsamples", "32"])):
+        calls, models = [], []
+
+        def spied_make_eval(model, cfg, *args, **kwargs):
+            models.append((model, cfg))
+            step = make_eval(model, cfg, *args, **kwargs)
+
+            def timed(*a, **k):
+                before = counts()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                calls.append((tuple(x - y for x, y in zip(counts(), before)),
+                              time.perf_counter()))
+                return out
+            return timed
+
+        out = PREDICT_DIR / name
+        diner.make_eval_step = spied_make_eval
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        composite_cuda.launches = composite_cuda.bwd_launches = 0
+        gather_cuda.launches = 0
+        try:
+            t0 = time.perf_counter()
+            scores = predict.main(["--config", str(cfg_path), "--ckpt",
+                                   str(ckpt), "--out", str(out), "--n",
+                                   str(PREDICT_N), "--device", "cuda",
+                                   *extra])
+            t_cli = time.perf_counter() - t0
+        finally:
+            diner.make_eval_step = make_eval
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        model, cfg = models[0]
+        loaded = model.state_dict()
+        same = all(torch.equal(loaded[k].cpu(), weights[reference_key(k)])
+                   for k in loaded)
+        check(same and sorted(map(reference_key, loaded)) == sorted(weights),
+              f"{name}: the loaded weights are not the checkpoint's")
+        files, suffixes = folder_files(out)
+        check(len(files) == PREDICT_N and all(v == suffixes
+                                              for v in files.values()),
+              f"{name}: prediction folder {files}")
+        check(all(np.isfinite(v) for v in scores.values())
+              and "lpips_proxy" in scores, f"{name}: scores {scores}")
+        check(len(calls) == PREDICT_N and all(
+            c[0] == (n_chunks, 0, 6 * n_chunks) for c in calls),
+            f"{name}: launches per image {[c[0] for c in calls]}, expected "
+            f"({n_chunks}, 0, {6 * n_chunks})")
+        ends = [t0] + [c[1] for c in calls]
+        warm = [b - a for a, b in zip(ends[1:], ends[2:])]
+        results[name] = dict(
+            n_samples=cfg.renderer.n_samples,
+            n_gaussian=cfg.renderer.n_gaussian,
+            compute_dtype=cfg.nerf.compute_dtype, images=len(calls),
+            time_to_first_image_s=ends[1] - t0,
+            s_per_image_warm=statistics.median(warm),
+            s_per_image_warm_all=warm,
+            s_per_image_warm_spread=max(warm) - min(warm), cli_s=t_cli,
+            peak_mem_bytes=peak, launches=launches,
+            launches_per_image=[c[0] for c in calls],
+            loaded_bit_for_bit=same, scores=scores, folder=str(out))
+    check(results["nsamples32"]["n_gaussian"] == 12,
+          f"--nsamples 32 gave {results['nsamples32']['n_gaussian']} "
+          "Gaussians, expected int(24 * 32 / 64) = 12")
+
+    folders = {name: Path(r["folder"]) for name, r in results.items()}
+    rescored = evaluate.main([str(folders["nsamples64"]),
+                              str(PREDICT_DIR / "rescored"), "--device",
+                              "cuda"])
+    check(rescored == results["nsamples64"]["scores"],
+          f"evaluate CLI {rescored} vs predict "
+          f"{results['nsamples64']['scores']}")
+    comparison = compare_evaluations(list(folders.items()),
+                                     PREDICT_DIR / "comparison")
+    written = json.loads((PREDICT_DIR / "comparison" /
+                          "comparison.json").read_text())
+    check(sorted(written["models"]) == sorted(folders)
+          and written == comparison, f"comparison.json {written}")
+    emit("predict", config="configs/evaluate_diner_on_dtu.yaml, data: "
+         "synthetic_sphere 512x640 nv=4, f32, reference Lightning .ckpt",
+         nvidia_smi=smi, kernels_built_s=build_s,
+         kernels_prebuilt="built by the build phase of this run; "
+         "time_to_first_image_s counts the CLI's start, the model init, "
+         "the checkpoint load and the first render",
+         runs=results, evaluate_cli_scores=rescored,
+         comparison_best=written["best"],
+         comparison_files=sorted(p.name for p in
+                                 (PREDICT_DIR / "comparison").iterdir()))
+    return ({name: r["launches"] for name, r in results.items()},
+            folders["nsamples64"])
+
+
+def torchvision_state_dicts(seed=0):
+    """Seeded state dicts in the release files' schemas: torchvision
+    ResNet34 (with the ``fc`` head and ``layer4``), VGG19 and VGG16
+    ``features`` (with a ``classifier`` entry, as the full models carry),
+    and the lpips package's linear calibration."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=0.05):
+        return scale * torch.randn(shape, generator=g)
+
+    def bn(prefix, c, sd):
+        sd[prefix + ".weight"] = 1 + rand(c)
+        sd[prefix + ".bias"] = rand(c)
+        sd[prefix + ".running_mean"] = rand(c)
+        sd[prefix + ".running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+    resnet = {"conv1.weight": rand(64, 3, 7, 7)}
+    bn("bn1", 64, resnet)
+    cin = 64
+    for s, (n, w) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for b in range(n):
+            p = f"layer{s + 1}.{b}"
+            resnet[p + ".conv1.weight"] = rand(w, cin, 3, 3)
+            bn(p + ".bn1", w, resnet)
+            resnet[p + ".conv2.weight"] = rand(w, w, 3, 3)
+            bn(p + ".bn2", w, resnet)
+            if b == 0 and s > 0:
+                resnet[p + ".downsample.0.weight"] = rand(w, cin, 1, 1)
+                bn(p + ".downsample.1", w, resnet)
+            cin = w
+    resnet["fc.weight"], resnet["fc.bias"] = rand(1000, 512), rand(1000)
+
+    def vgg(convs):
+        sd, cin = {}, 3
+        for idx, ch in convs:
+            sd[f"features.{idx}.weight"] = rand(ch, cin, 3, 3)
+            sd[f"features.{idx}.bias"] = rand(ch, scale=0.01)
+            cin = ch
+        sd["classifier.6.bias"] = rand(1000)
+        return sd
+
+    from diner_tpu_torch.evaluation.metrics import (LPIPS_CHANNELS,
+                                                    VGG16_CONVS)
+    vgg19 = vgg(((0, 64), (2, 64), (5, 128), (7, 128), (10, 256),
+                 (12, 256), (14, 256), (16, 256), (19, 512), (21, 512),
+                 (23, 512), (25, 512), (28, 512), (30, 512), (32, 512),
+                 (34, 512)))
+    lins = {f"lins.{i}.model.1.weight": rand(1, c, 1, 1).abs()
+            for i, c in enumerate(LPIPS_CHANNELS)}
+    return {"resnet34-b627a593.pth": resnet, "vgg19-dcbb9e9d.pth": vgg19,
+            "vgg16-397923af.pth": vgg(VGG16_CONVS),
+            "lpips_vgg_v0.1.pth": lins}
+
+
+def phase_pretrained(folder):
+    """The pretrained-weights path on the card: seeded ``.pth`` files in
+    the torchvision / lpips schemas are converted by ``python -m
+    diner_tpu_torch.import_pretrained`` (a subprocess), and with
+    ``DINER_TPU_PRETRAINED`` pointing at them (in this phase only; restored
+    after it) ``create_model`` at ``configs/evaluate_diner_on_dtu.yaml``'s
+    width grafts the ImageNet ResNet34, the VGG19 loss net loads, and
+    ``evaluate_folder`` scores real LPIPS on the predict phase's
+    ``PREDICT_N`` rendered images. Checks: conv1's RGB slice is the file's and its PE
+    channels the seeded draw's; every other model weight outside the ResNet
+    the seeded draw's; VGG19's convolutions the file's; the scores report
+    ``lpips``, not ``lpips_proxy``, and keep the other metrics."""
+    import os
+    import shutil
+    import sys
+
+    from diner_tpu_torch.evaluation.suite import evaluate_folder
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.diner import create_model
+    from diner_tpu_torch.utils.pretrained import load_vgg19
+
+    wdir = OUT_DIR / "pretrained"
+    shutil.rmtree(wdir, ignore_errors=True)
+    wdir.mkdir(parents=True)
+    files = torchvision_state_dicts()
+    for name, sd in files.items():
+        torch.save(sd, wdir / name)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "diner_tpu_torch.import_pretrained",
+         "--weights-dir", str(wdir)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    t_import = time.perf_counter() - t0
+    check(cli.returncode == 0, f"import_pretrained exited "
+          f"{cli.returncode}: {cli.stderr[-2000:]}")
+    npz = sorted(p.name for p in wdir.glob("*.npz"))
+    check(npz == ["lpips_vgg.npz", "resnet34_imagenet.npz",
+                  "vgg19_imagenet.npz"], f"converted {npz}: {cli.stdout}")
+
+    dcfg = load_train_config(ROOT / "configs" /
+                             "evaluate_diner_on_dtu.yaml").diner
+    from diner_tpu_torch.data.synthetic import make_sphere_scene
+    batch = make_sphere_scene(H=TRAIN_LOOP_HW[0], W=TRAIN_LOOP_HW[1], nv=4)
+    saved = os.environ.get("DINER_TPU_PRETRAINED")
+    os.environ["DINER_TPU_PRETRAINED"] = str(wdir)
+    try:
+        t1 = time.perf_counter()
+        grafted = create_model(dcfg, batch, seed=0).state_dict()
+        torch.cuda.synchronize()
+        t_model = time.perf_counter() - t1
+        vgg = load_vgg19()
+        scores = evaluate_folder(folder, wdir / "scores")
+    finally:
+        if saved is None:
+            os.environ.pop("DINER_TPU_PRETRAINED")
+        else:
+            os.environ["DINER_TPU_PRETRAINED"] = saved
+    fresh = create_model(dcfg, batch, seed=0).state_dict()
+
+    conv1 = grafted["encoder.resnet.conv1.weight"].cpu()
+    rgb_is_file = torch.equal(conv1[:, :3],
+                              files["resnet34-b627a593.pth"]["conv1.weight"])
+    pe_is_draw = torch.equal(conv1[:, 3:],
+                             fresh["encoder.resnet.conv1.weight"][:, 3:].cpu())
+    rest_is_draw = all(torch.equal(v, fresh[k]) for k, v in grafted.items()
+                       if not k.startswith("encoder.resnet."))
+    stats_from_file = torch.equal(
+        grafted["encoder.resnet.layer3_5.bn2.running_var"].cpu(),
+        files["resnet34-b627a593.pth"]["layer3.5.bn2.running_var"])
+    vgg_is_file = vgg is not None and all(
+        torch.equal(getattr(vgg, f"conv_{i}").weight.cpu(),
+                    files["vgg19-dcbb9e9d.pth"][f"features.{i}.weight"])
+        for i in (0, 19))
+    emit("pretrained", converted=npz, import_cli_s=t_import,
+         conv1_shape=list(conv1.shape), conv1_rgb_is_file=rgb_is_file,
+         conv1_pe_channels_are_the_draw=pe_is_draw,
+         other_weights_are_the_draw=rest_is_draw,
+         bn_stats_from_file=stats_from_file, vgg19_loaded=vgg_is_file,
+         model_init_s=t_model, scores=scores,
+         env_restored=os.environ.get("DINER_TPU_PRETRAINED") == saved)
+    check(conv1.shape[1] > 3 and rgb_is_file and pe_is_draw
+          and rest_is_draw and stats_from_file,
+          "ResNet34 graft: RGB slice, PE channels, other weights or BN "
+          "statistics wrong")
+    check(vgg_is_file, "VGG19 loss net not loaded from the converted file")
+    check("lpips" in scores and "lpips_proxy" not in scores
+          and all(np.isfinite(v) for v in scores.values()),
+          f"scores with the converted LPIPS: {scores}")
+    del grafted, fresh, vgg
+    torch.cuda.empty_cache()
 
 
 def gather_row(table, idx, runs=30, cold=False):
@@ -1479,7 +1971,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_device()
-    phase_build()
+    build_s = phase_build()
     rows = phase_kernel()
     bwd_rows = phase_kernel_bwd()
     gather_rows = phase_kernel_gather()
@@ -1498,11 +1990,16 @@ def main():
     phase_train_small_reference()
     phase_train_small_reference(pruned=True)
     torch.cuda.empty_cache()
+    predict_l, folder = phase_predict(smi, build_s)
+    phase_pretrained(folder)
     train_loop_l = phase_train_loop()
 
     paths = {"eval_render": eval_l, "eval_render_pairs": pairs_l,
              "eval_render_pruned": pruned_l, "train_steps": train_l,
-             "train_steps_pruned": train_pruned_l, "train_loop": train_loop_l}
+             "train_steps_pruned": train_pruned_l,
+             "predict": predict_l["nsamples64"],
+             "predict_nsamples32": predict_l["nsamples32"],
+             "train_loop": train_loop_l}
 
     def entry(name, row_list, main, replaces, which, library_ms=None):
         by_path = {p: launches[which] for p, launches in paths.items()}
@@ -1523,23 +2020,33 @@ def main():
     corner = next(r for r in gather_rows
                   if r["case"] == "latent_corner_c512_bf16")
     timed = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+    tl_R, tl_K = train_loop_composite_shape()
+
+    def train_loop_case(row_list, *errs):
+        """Kernel A's or B's largest errors at the train loop's shape."""
+        at = [r for r in row_list if (r["R"], r["K"]) == (tl_R, tl_K)]
+        return {"R": tl_R, "K": tl_K, "checks": len(at),
+                **{e: max(r[e] for r in at) for e in errs}}
+
     kernels = [
         dict(entry("composite_fwd", rows,
                    next(r for r in rows if (r["R"], r["K"]) == (4096, 64)
                         and "ms" in r),
                    "diner_tpu/ops/pallas/composite_pallas.py:29", 0),
              cases=[{k: r[k] for k in ("R", "K") + timed if k in r}
-                    for r in rows if "ms" in r]),
+                    for r in rows if "ms" in r],
+             train_loop_case=train_loop_case(rows, "max_abs_err")),
         # the train step's case: R = 4096, K = 40, only g_rgb
         dict(entry("composite_bwd", bwd_rows,
                    next(r for r in bwd_rows if "ms" in r
                         and not r["g_depth_and_g_w"]),
                    "diner_tpu/ops/pallas/composite_pallas.py:54", 1),
              err_d_sigma_over_scale={
-                 kind: max(r["err_d_sigma_over_scale"] for r in bwd_rows
-                           if r["saturated"] == sat)
-                 for kind, sat in (("unsaturated", False),
-                                   ("saturated", True))}),
+                 pattern: max(r["err_d_sigma_over_scale"] for r in bwd_rows
+                              if r["pattern"] == pattern)
+                 for pattern in BWD_PATTERNS},
+             train_loop_case=train_loop_case(bwd_rows, "err_d_rgb",
+                                             "err_d_sigma_over_scale")),
         dict(entry("row_gather", gather_rows, corner,
                    "diner_tpu/ops/pallas/gather_pallas.py:45", 2,
                    library_ms=corner["library_ms"]),

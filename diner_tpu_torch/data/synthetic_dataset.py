@@ -3,14 +3,16 @@ runs without any data on disk). Each index varies the target camera angle.
 
 Port of ``diner_tpu/data/synthetic_dataset.py:SphereDataset`` on the port's
 ``data/synthetic.py``, with the DINER batch schema (images, depths and
-cameras). The KeypointNeRF and NOVEL schemas wait for those models.
+cameras) and the camera sweep of validation (a circle of look-at cameras
+around the sphere). The KeypointNeRF and NOVEL schemas wait for those
+models.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from diner_tpu_torch.data.synthetic import make_sphere_scene
+from diner_tpu_torch.data.synthetic import _look_at, make_sphere_scene
 
 znear = 0.8
 zfar = 2.4
@@ -44,3 +46,11 @@ class SphereDataset:
         sample.pop("znear")
         sample.pop("zfar")
         return sample
+
+    def get_cam_sweep_extrinsics(self, nframes: int, scan_idx=None, **_):
+        """(nframes, 4, 4) world-to-camera extrinsics on a circle of radius
+        1.6 at height 0.25, looking at the sphere."""
+        angles = np.linspace(0, 2 * np.pi, nframes, endpoint=False)
+        extr = [_look_at(np.array([1.6 * np.sin(a), 0.25,
+                                   -1.6 * np.cos(a)])) for a in angles]
+        return np.stack(extr)

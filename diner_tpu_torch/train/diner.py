@@ -5,7 +5,8 @@ Port of ``diner_tpu/train/diner.py``: ``DinerConfig``, a model constructor
 that draws its weights from a seeded ``torch.Generator`` and rerolls
 dead-density inits (``diner.py:64-99``), ``select_pixels`` and
 ``compute_losses`` (``:120-203``), ``make_train_step`` (``:206-227``) and
-``make_eval_step`` (``:230-271``).
+``make_eval_step`` (``:230-271``). A ResNet34 encoder takes converted
+ImageNet weights where they are on disk (``utils/pretrained.py``).
 
 Per train step: encode the source views with batch statistics (and move
 the running ones), select 128 random pixels or, with the VGG loss on, a
@@ -28,6 +29,8 @@ from diner_tpu_torch.losses import antibias_loss, mse_loss, vgg_loss
 from diner_tpu_torch.models.pixelnerf import PixelNeRF, PixelNeRFConfig
 from diner_tpu_torch.renderer import (RendererConfig, render_rays,
                                       render_rays_chunked)
+from diner_tpu_torch.utils.pretrained import (graft_resnet34,
+                                              load_resnet34_variables)
 
 SRC_KEYS = ("src_rgbs", "src_depths", "src_depth_stds", "src_extrinsics",
             "src_intrinsics")
@@ -102,6 +105,8 @@ def create_model(cfg: DinerConfig, example_batch, seed: int = 0,
     point along real target rays are "dead" (relu∘relu passes no gradient
     and renders only background); they are redrawn, up to
     ``max_init_tries`` times, as the JAX package's ``create_state`` does.
+    Then, as there (``diner.py:100-108``), a ResNet34 encoder takes the
+    converted ImageNet weights where ``utils/pretrained.py`` finds them.
     """
     dev = resolve_device(device)
     b = batch_to_device(example_batch, dev)
@@ -114,6 +119,12 @@ def create_model(cfg: DinerConfig, example_batch, seed: int = 0,
         out = model(*(b[k] for k in SRC_KEYS), xyz, dirs)
         if float((out[..., 3] > 0).float().mean()) > 0.01:
             break
+    if cfg.nerf.encoder.backbone == "resnet34":
+        # the reference loads torchvision's pretrained=True
+        # (src/models/image_encoder.py:50-56)
+        pre = load_resnet34_variables()
+        if pre is not None:
+            graft_resnet34(model, pre)
     return model
 
 

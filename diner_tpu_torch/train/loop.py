@@ -5,15 +5,15 @@ Lightning stack, ``python_scripts/train.py`` + ``src/models/diner.py``): an
 epoch loop over the prefetching ``DataLoader``, the port's train step
 (``train/diner.py:make_train_step``: kernels A, B and C on the card),
 periodic validation (prediction folder → evaluation suite → logged
-scores), checkpoints with resume, JSONL (and TensorBoard, where present)
-metric logging, and a config and code snapshot in the run directory.
+scores → camera-sweep videos), checkpoints with resume, JSONL (and
+TensorBoard, where present) metric logging, and a config and code snapshot
+in the run directory.
 
 Per-step randomness (pixels and the sampler's noise) comes from a
 ``torch.Generator`` on the model's device seeded from the count of steps
 taken, as the JAX loop seeds its key from the step (``loop.py:180``); the
 noise itself differs from JAX's, whose generator is another. Not yet
-ported: the camera-sweep videos (``loop.py:276-305``, ffmpeg through
-imageio) and the device mesh (``parallel/``).
+ported: the device mesh (``parallel/``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ from diner_tpu_torch.train import checkpoint as ckpt_lib
 from diner_tpu_torch.train.config import TrainRunConfig
 from diner_tpu_torch.train.diner import (TrainStep, create_model,
                                          make_eval_step, make_train_step)
-from diner_tpu_torch.utils.visual import colorize, save_image
+from diner_tpu_torch.utils.pretrained import load_vgg19
+from diner_tpu_torch.utils.visual import colorize, save_image, save_video
 
 
 def select_eval_indices(dataset, n: int):
@@ -151,12 +152,18 @@ class Trainer:
     # ------------------------------------------------------------- setup
 
     def _init_state(self, example_batch) -> TrainStep:
-        """The model (seed 0, dead-density reroll), VGG19 for the
-        perceptual loss (seed 0: no pretrained weights are loaded) and the
-        train step, restored from ``ckpt_path`` or the run's latest
-        checkpoint when there is one."""
+        """The model (seed 0, dead-density reroll, the ImageNet ResNet34
+        where converted), VGG19 for the perceptual loss (the converted
+        ImageNet weights where present, else seed 0, as
+        ``diner_tpu/train/loop.py:133-140``) and the train step, restored
+        from ``ckpt_path`` or the run's latest checkpoint when there is
+        one."""
         dcfg = self.cfg.diner
-        vgg = init_vgg19(0, device=self.device) if dcfg.w_vgg > 0 else None
+        vgg = None
+        if dcfg.w_vgg > 0:
+            vgg = load_vgg19(device=self.device)
+            if vgg is None:
+                vgg = init_vgg19(0, device=self.device)
         model = create_model(dcfg, example_batch, seed=0, device=self.device)
         train_step = make_train_step(model, dcfg, vgg)
         if self.cfg.ckpt_path:
@@ -224,8 +231,9 @@ class Trainer:
 
     def validate(self, train_step: TrainStep, eval_step, generator):
         """Reference on_validation_epoch_end: checkpoint, prediction folder,
-        evaluation suite, logged scores (``src/models/diner.py:310-330``);
-        the camera sweeps are not yet ported."""
+        evaluation suite, logged scores and camera sweeps
+        (``src/models/diner.py:310-330``); a dataset without a sweep is
+        skipped, as the JAX loop skips it."""
         step = train_step.step
         eval_dir = self.run_dir / f"eval_{step:06d}"
         os.makedirs(eval_dir, exist_ok=True)
@@ -237,6 +245,12 @@ class Trainer:
                                             device=self.device)
         self.logger.log({f"valscores_{k}": v for k, v in scores.items()},
                         step)
+
+        try:
+            self.create_cam_sweep(eval_step, eval_dir / "cam_sweeps",
+                                  generator, **self.cfg.cam_sweep_settings)
+        except (AttributeError, NotImplementedError):
+            pass  # dataset without sweep support
         return scores
 
     def create_prediction_folder(self, eval_step, outdir, generator,
@@ -269,3 +283,37 @@ class Trainer:
                 save_image(stem + eval_suite.REF_SUFFIX,
                            np.concatenate(list(src[i]), axis=1))
                 save_image(stem + eval_suite.GT_SUFFIX, gt[i])
+
+    def create_cam_sweep(self, eval_step, outdir, generator,
+                         nframes: int = 30, n_cam_sweeps: int = 4,
+                         fps: int = 5):
+        """Camera sweeps of ``n_cam_sweeps`` validation samples spread over
+        the set (``diner_tpu/train/loop.py:276-305``): each renders the
+        dataset's ``nframes`` sweep cameras from the sample's source views
+        and writes ``<name>.mp4`` (a GIF where no mp4 writer exists) of
+        [rgb; colourised depth] frames played forward then back
+        (2·nframes − 1), and ``<name>-ref_imgs.jpg`` of the source
+        views."""
+        os.makedirs(outdir, exist_ok=True)
+        dataset = self.val_set
+        sweep_idcs = np.linspace(0, len(dataset) - 1,
+                                 n_cam_sweeps).astype(int)
+        for idx in sweep_idcs:
+            sample = dataset[int(idx)]
+            sweep_extr = dataset.get_cam_sweep_extrinsics(nframes=nframes,
+                                                          scan_idx=int(idx))
+            frames = []
+            for f in range(nframes):
+                batch = {k: v[None] for k, v in arrays_of(sample).items()}
+                batch["target_extrinsics"] = sweep_extr[f][None]
+                rgb, depth = eval_step(batch, generator=generator)
+                frames.append(np.concatenate(
+                    [rgb[0].float().cpu().numpy(),
+                     colorize(depth[0].float().cpu().numpy())], axis=0))
+            frames = np.stack(frames)
+            frames = frames[list(range(nframes))
+                            + list(range(nframes - 1, 0, -1))]
+            save_video(Path(outdir) / f"{sample['sample_name']}.mp4",
+                       frames, fps)
+            save_image(Path(outdir) / f"{sample['sample_name']}-ref_imgs.jpg",
+                       np.concatenate(list(sample["src_rgbs"]), axis=1))

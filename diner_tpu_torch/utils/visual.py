@@ -1,11 +1,13 @@
-"""Host-side visualization helpers: a colour map and an image writer.
+"""Host-side visualization helpers: a colour map, an image writer and a
+video writer.
 
 Port of ``diner_tpu/utils/visual.py`` (reference
 ``src/util/torch_helpers.py:43-97``): ``colorize`` looks values up in the
 viridis table stored in ``utils/viridis.py`` exactly as matplotlib's
-``ListedColormap`` does, and ``save_image`` writes 8-bit PNGs with PIL.
-Neither needs matplotlib or imageio. ``save_video`` (the camera-sweep
-videos, ffmpeg through imageio) is not yet ported.
+``ListedColormap`` does, ``save_image`` writes 8-bit images with PIL, and
+``save_video`` writes an mp4 where imageio has an ffmpeg backend and
+otherwise an animated GIF with PIL, as the JAX version falls back to GIF.
+None of them needs matplotlib; only the mp4 needs imageio.
 """
 
 from __future__ import annotations
@@ -48,3 +50,23 @@ def save_image(path, img: np.ndarray):
 
     img = np.clip(np.asarray(img), 0.0, 1.0)
     Image.fromarray((img * 255).astype(np.uint8)).save(str(path))
+
+
+def save_video(path, frames: np.ndarray, fps: int = 5) -> str:
+    """frames (N, H, W, 3) in [0, 1] → an mp4 at ``path`` where imageio can
+    write one, else an animated GIF beside it (``.gif``, 1/fps s a frame,
+    looping); returns the path written."""
+    frames8 = (np.clip(frames, 0, 1) * 255).astype(np.uint8)
+    path = str(path)
+    try:
+        import imageio.v2 as imageio
+        imageio.mimwrite(path, frames8, fps=fps, quality=10)
+        return path
+    except Exception:  # no imageio, or no ffmpeg backend for it
+        pass
+    from PIL import Image
+    gif = path.rsplit(".", 1)[0] + ".gif"
+    images = [Image.fromarray(f) for f in frames8]
+    images[0].save(gif, save_all=True, append_images=images[1:],
+                   duration=int(round(1000 / fps)), loop=0)
+    return gif

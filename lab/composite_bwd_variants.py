@@ -14,7 +14,9 @@ warp or half a warp per ray with K <= 64 in registers, either one with T
 at chunk starts in shared memory at every K, and the first kernel B's
 thread per ray (S_k = total - prefix_k). The saturated cases
 (``chip_smoke.saturate``: samples at alpha ~ 1) show each variant's d_sigma
-error where the 1e-10 floor divides S_k.
+error where the 1e-10 floor divides S_k; the front-loaded ones
+(``chip_smoke.front_load``: a dense run of samples holding nearly all of
+each ray's weight before the rest) show it where total - prefix_k cancels.
 
 Prints one JSON line per case and writes them all to
 ``outputs/lab/composite_bwd_variants.json`` (git-ignored). Not part of the
@@ -36,7 +38,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import device_time_ms, field_case, saturate  # noqa: E402
+from chip_smoke import (device_time_ms, field_case, front_load,  # noqa: E402
+                        saturate)
 from diner_tpu_torch.ops import composite as plain  # noqa: E402
 from diner_tpu_torch.ops import composite_cuda  # noqa: E402
 
@@ -44,15 +47,20 @@ BUILD = ROOT / "build" / "lab"
 OUT = ROOT / "outputs" / "lab" / "composite_bwd_variants.json"
 VARIANTS = {"package": 0, "warp_regs": 1, "half_warp_regs": 2,
             "warp_shared": 3, "half_warp_shared": 4, "thread_per_ray": 5}
-# (R, K, g_depth and g_w, saturated): the train step (one 64×64 patch, and
-# the train loop's batch of two), the eval shape, the cotangents of the full
-# VJP, a K past the register path, and K = 33 and 1, where half a warp pads
-# less; then the train step's and K = 100 with samples at alpha ~ 1
-CASES = ((4096, 40, False, False), (8192, 40, False, False),
-         (4096, 64, False, False), (4096, 40, True, False),
-         (4096, 100, False, False), (4096, 33, False, False),
-         (4096, 1, False, False), (4096, 40, False, True),
-         (4096, 100, False, True))
+# (R, K, g_depth and g_w, pattern): the train step (one 64×64 patch, two
+# scenes, and the train loop's batch of four scenes), the eval shape, the
+# cotangents of the full VJP, a K past the register path, and K = 33 and 1,
+# where half a warp pads less; then the train step's and K = 100 with
+# samples at alpha ~ 1, and the train step's, the eval shape and K = 100
+# front-loaded
+CASES = ((4096, 40, False, "random"), (8192, 40, False, "random"),
+         (16384, 40, False, "random"),
+         (4096, 64, False, "random"), (4096, 40, True, "random"),
+         (4096, 100, False, "random"), (4096, 33, False, "random"),
+         (4096, 1, False, "random"), (4096, 40, False, "saturated"),
+         (4096, 100, False, "saturated"), (4096, 40, False, "front_loaded"),
+         (4096, 64, False, "front_loaded"),
+         (4096, 100, False, "front_loaded"))
 
 
 def build():
@@ -84,11 +92,13 @@ def main():
           flush=True)
 
     rows = []
-    for R, K, full, saturated in CASES:
+    for R, K, full, pattern in CASES:
         rgb, sigma, z, rays = field_case(R, K, R + K)
         g = torch.Generator(device="cuda").manual_seed(K)
-        if saturated:
+        if pattern == "saturated":
             saturate(sigma, z, rays[..., 7], g)
+        elif pattern == "front_loaded":
+            front_load(sigma, z, g)
         g_rgb = torch.randn((1, R, 3), generator=g, device="cuda")
         g_depth = torch.randn((1, R), generator=g, device="cuda") if full \
             else None
@@ -119,7 +129,7 @@ def main():
                                   g_depth, g_w)
         scale = float(ref[1].abs().max())
         row = {"R": R, "K": K, "g_depth_and_g_w": full,
-               "saturated": saturated, "device": smi,
+               "pattern": pattern, "device": smi,
                "plain_ms": device_time_ms(lambda: plain.composite_bwd(
                    rgb, sigma, z, rays[..., 7], g_rgb, g_depth, g_w)),
                "package_wrapper_ms": device_time_ms(

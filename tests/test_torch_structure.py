@@ -37,7 +37,9 @@ def test_import_pulls_in_no_jax():
     for m in ("train.config", "train.loop", "train.checkpoint",
               "train.__main__", "data.loader", "data.io", "data.dtu",
               "data.synthetic_dataset", "evaluation.metrics",
-              "evaluation.suite", "utils.meters", "utils.visual"):
+              "evaluation.suite", "utils.meters", "utils.visual",
+              "utils.pretrained", "utils.convert", "import_pretrained",
+              "predict", "evaluate"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -102,6 +104,26 @@ def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
         init_lpips_proxy()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_folder(tmp_path, tmp_path / "scores")
+
+
+def test_user_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """predict and evaluate run on the card unless --device cpu; the
+    weights import needs no device."""
+    from diner_tpu_torch.evaluate import main as evaluate_main
+    from diner_tpu_torch.import_pretrained import main as import_main
+    from diner_tpu_torch.predict import main as predict_main
+    from diner_tpu_torch.utils.pretrained import load_vgg19
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_main(["--config", str(ROOT / "configs" /
+                                      "train_synthetic.yaml"),
+                      "--ckpt", str(tmp_path), "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_main([str(tmp_path)])
+    monkeypatch.setenv("DINER_TPU_PRETRAINED", str(tmp_path))
+    assert import_main([]) == []
+    assert load_vgg19() is None  # nothing to load: no device touched
 
 
 def test_kernel_build_goes_to_ignored_build_dir():
