@@ -48,6 +48,22 @@ set to 0 just before each and read just after:
   this phase only, ``create_model`` grafts ResNet34 (conv1's RGB slice the
   file's, its PE channels the seeded draw's), VGG19 loads, and
   ``evaluate_folder`` reports ``lpips``, not ``lpips_proxy``.
+- TransMVSNet depth inference (``mvs_*``): ``python -m
+  diner_tpu_torch.data.dtu_fixture`` writes one fabricated DTU scan;
+  ``python -m diner_tpu_torch.mvs --mode write_prediction`` maps its 4
+  quad-grid targets at 512×640 from 4 views with the default model
+  (ndepths 48/32/8, 192 hypotheses, f32) read from a seeded checkpoint in
+  the reference's schema; kernel C is timed at the indices of one
+  plane-sweep chunk per stage and one DCN tap (``gather_mvs``); ``python
+  -m diner_tpu_torch.mvs.evaluate`` maps a test-layout scan of 5 views at
+  864×1152 and fuses it (``normal``, then ``gipuma``), and the fixture's
+  ground-truth depths go through both fusion backends; DINER's
+  ``DTUDataset`` reads the written PNGs and the eval step renders from
+  them (``mvs_pipeline``); a small TransMVSNet on the card is held against
+  the CPU. Checks: loaded weights bit for bit, the files of both CLIs,
+  finite depth inside the cascade's reach, kernel C 456 (4 views) and 500
+  (5 views) times per map, fused shares of the ground truth, the source
+  depths DINER reads equal to the PNGs, A 80 and C 480 for its render.
 - the training entry point (``train_loop``): ``configs/train_dtu.yaml``
   through the port's ``load_train_config`` with ``data`` replaced by the
   sphere at 512×640 (4 views, the config's 4 scenes a step, f32) and a
@@ -73,7 +89,9 @@ flushed before each call.
 Each phase prints one JSON line; any failed check exits nonzero. The last
 three lines are the kernel table, the card's name and power limit as
 ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``. A copy
-of every phase line goes to ``outputs/chip_smoke/chip_smoke.json``.
+of every phase line goes to ``outputs/chip_smoke/chip_smoke.json``; what
+the phases write there besides that log and the profile tables is deleted
+at the end.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -81,8 +99,10 @@ Run from the repository root:  python3 chip_smoke.py
 import dataclasses
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -1963,6 +1983,639 @@ def gather_path(model, cfg, batch, H, W):
     return counts
 
 
+# ------------------------------------------------------------ TransMVSNet
+
+MVS_DIR = OUT_DIR / "mvs"
+MVS_FIXTURE = MVS_DIR / "dtu"  # the MVS layout: 1200×1600 renders
+MVS_WRITE_HW = (512, 640)  # MVSDTUDataset's crop: the maps DINER reads
+# the quad grid's corners, whose depth write_prediction maps and DINER reads
+# as source views (data/dtu.py:SRC_CAM_IDCS, in its order), and the target
+# DINER renders from them
+MVS_SOURCE_CAMS = (30, 10, 6, 35)
+MVS_TARGET_CAM = 24
+MVS_TEST_HW = (864, 1152)  # scripts/mvs_test.py's --max_h / --max_w
+MVS_TEST_VIEWS = 5         # and its --num_view
+# the small card-vs-CPU forward; TransMVSNet needs H and W divisible by 32
+MVS_SMALL_HW = (64, 96)
+# the seeded model's cost regularisers' last convolutions are scaled by
+# this, so the softmax over the hypotheses is not flat: at 48/32/8
+# hypotheses stage 2 needs it for 90 % of its pixels to be decisive (with
+# the tests' gain of 10, at 8/8/8 there, 34 % were in a CPU run)
+MVS_PROB_GAIN = 100.0
+# kernel C launches per depth map of the default TransMVSNet by views:
+# 324 DCN taps plus 44 plane-sweep gathers per source view
+MVS_C_PER_MAP = {4: 456, 5: 500}
+# the share of the ground-truth pixels each fusion backend must keep (a CPU
+# run of the same fixture and cameras kept 0.902 and 0.888)
+MVS_GT_FUSED_SHARE = 0.8
+
+
+def mvs_row_gathers_per_map(cfg, views):
+    """Kernel C launches of one TransMVSNet forward: 4 corners for each of
+    the 9 taps of its 9 DCN layers (3 heads of 3; all views in one batch),
+    and per source view 4 corners for each plane-sweep chunk of each stage
+    (``DepthNet._similarity``'s chunks)."""
+    chunks = 0
+    for nd in cfg.ndepths:
+        c = min(nd, cfg.sweep_chunk)
+        chunks += nd // c if nd % c == 0 else nd
+    return 3 * 3 * 9 * 4 + 4 * chunks * (views - 1)
+
+
+def seeded_transmvsnet(seed):
+    """The default TransMVSNet (eval mode, on the CPU) drawn from
+    ``seed``: the module init, then BN statistics and affines, the DCN
+    offset/mask convolutions (offsets of a few pixels, masks away from 0.5)
+    and the cost regularisers' last convolutions × ``MVS_PROB_GAIN``."""
+    from diner_tpu_torch.mvs.model import TransMVSNet, TransMVSNetConfig
+    torch.manual_seed(seed)
+    model = TransMVSNet(TransMVSNetConfig())
+    g = torch.Generator().manual_seed(seed + 1)
+
+    def draw(t, scale, shift=0.0, uniform=False):
+        r = (torch.rand if uniform else torch.randn)(t.shape, generator=g)
+        t.copy_(shift + scale * r)
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                draw(m.running_mean, 0.1)
+                draw(m.running_var, 1.0, 0.5, uniform=True)
+                draw(m.weight, 0.1, 1.0)
+                draw(m.bias, 0.1)
+            elif name.endswith("conv_offset_mask"):
+                draw(m.weight, 0.2)
+                draw(m.bias, 0.2)
+            elif name.endswith(".prob"):
+                m.weight.mul_(MVS_PROB_GAIN)
+    return model.eval()
+
+
+def mvs_depth_bounds(cfg, depth_values):
+    """The depths the cascade can reach from these global hypotheses:
+    stage 1 samples [first, last]; each later stage adds ndepth / 2 of its
+    intervals (ratio × (last − first) / D) on either side."""
+    lo, hi = float(depth_values[0]), float(depth_values[-1])
+    interval = (hi - lo) / len(depth_values)
+    ext = sum(nd / 2 * r * interval for nd, r in
+              zip(cfg.ndepths[1:], cfg.depth_intervals_ratio[1:]))
+    return lo - ext, hi + ext
+
+
+def spy_run_model(records):
+    """Wrap ``mvs/predict.py:run_model``, which both MVS CLIs call once
+    per depth map, to append per call: its end time, forward seconds,
+    kernel A, B and C launches, the sample's name and hypotheses and the
+    depth map on the host. Returns the function that restores it."""
+    from diner_tpu_torch.mvs import predict
+    run = predict.run_model
+
+    def spied(model, sample, device):
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = run(model, sample, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        records.append(dict(
+            end=t1, forward_s=t1 - t0,
+            launches=tuple(a - b for a, b in zip(read_counts(), before)),
+            name=sample.get("dpath") or sample.get("filename"),
+            depth_values=np.asarray(sample["depth_values"]),
+            depth=out["depth"][0].float().cpu()))
+        return out
+
+    predict.run_model = spied
+    return lambda: setattr(predict, "run_model", run)
+
+
+def reset_counts():
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    composite_cuda.launches = composite_cuda.bwd_launches = 0
+    gather_cuda.launches = 0
+
+
+def read_counts():
+    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    return (composite_cuda.launches, composite_cuda.bwd_launches,
+            gather_cuda.launches)
+
+
+def map_times(t0, records):
+    """Time to the first depth map from ``t0`` and the warm seconds per
+    map (between consecutive maps' ends: model and data I/O)."""
+    ends = [r["end"] for r in records]
+    warm = [b - a for a, b in zip(ends, ends[1:])]
+    return dict(maps=len(records), time_to_first_map_s=ends[0] - t0,
+                s_per_map_warm=statistics.median(warm) if warm else None,
+                s_per_map_warm_all=warm,
+                forward_s=[r["forward_s"] for r in records])
+
+
+def phase_mvs_fixture():
+    """``python -m diner_tpu_torch.data.dtu_fixture`` writes one scan (the
+    7 lights as links to one render) of the cameras the MVS phases read:
+    49 cam files, 1200×1600 renders and ground-truth depths."""
+    shutil.rmtree(MVS_DIR, ignore_errors=True)
+    cams = sorted(MVS_SOURCE_CAMS + (MVS_TARGET_CAM,))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "diner_tpu_torch.data.dtu_fixture",
+         str(MVS_FIXTURE), "--cams", ",".join(map(str, cams))], cwd=ROOT,
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dtu_fixture exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    n_cams = len(list((MVS_FIXTURE / "Cameras/train").glob("*_cam.txt")))
+    n_rect = len(list((MVS_FIXTURE / "Rectified/scan1_train").glob(
+        "rect_*_r5000.png")))
+    n_pfm = len(list((MVS_FIXTURE / "Depths/scan1").glob("depth_map_*.pfm")))
+    emit("mvs_fixture", seconds=seconds, cams=cams, cam_files=n_cams,
+         renders=n_rect, depth_maps=n_pfm)
+    check(n_cams == 49 and n_rect == 7 * len(cams) and n_pfm == len(cams),
+          f"fixture: {n_cams} cam files, {n_rect} renders, {n_pfm} depths")
+
+
+def phase_mvs_write_prediction(smi):
+    """``python -m diner_tpu_torch.mvs --mode write_prediction`` (``main``
+    in this process) at full width: the default TransMVSNet (ndepths
+    48/32/8, 192 hypotheses, f32) from a seeded checkpoint in the
+    reference trainer's schema (``{"model": …}``, DDP ``module.`` keys)
+    maps the fixture's 4 quad-grid targets at 512×640 from 4 views.
+    Checks: the loaded weights are the checkpoint's bit for bit; 3 PNGs per
+    target; each depth map finite, inside the cascade's reach of its
+    hypotheses, and its PNG within one unit of it; kernel C
+    ``MVS_C_PER_MAP[4]`` times per map, A and B never."""
+    from diner_tpu_torch.data.io import DEPTH_PNG_SCALE, read_depth_png
+    from diner_tpu_torch.mvs import __main__ as mvs_cli
+    from diner_tpu_torch.mvs import predict
+    from diner_tpu_torch.mvs.model import TransMVSNetConfig
+    cfg = TransMVSNetConfig()
+    per_map = MVS_C_PER_MAP[4]
+    check(mvs_row_gathers_per_map(cfg, 4) == per_map,
+          f"derived kernel C launches {mvs_row_gathers_per_map(cfg, 4)}")
+    weights = seeded_transmvsnet(0).state_dict()
+    ckpt = MVS_DIR / "TransMVSNet.ckpt"
+    torch.save({"model": {"module." + k: v for k, v in weights.items()},
+                "epoch": 15}, ckpt)
+
+    models, records = [], []
+    create = predict.create_model
+
+    def spied_create(*args, **kwargs):
+        models.append(create(*args, **kwargs))
+        return models[-1]
+
+    predict.create_model = spied_create
+    restore = spy_run_model(records)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        written = mvs_cli.main([
+            "--mode", "write_prediction", "--trainpath", str(MVS_FIXTURE),
+            "--trainlist", str(MVS_FIXTURE / "list.txt"), "--ckpt",
+            str(ckpt), "--device", "cuda"])
+        t_cli = time.perf_counter() - t0
+    finally:
+        predict.create_model = create
+        restore()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loaded = models[0].state_dict()
+    same = sorted(loaded) == sorted(weights) and all(
+        torch.equal(loaded[k].cpu(), weights[k]) for k in weights)
+
+    maps = []
+    for r in records:
+        stem = MVS_FIXTURE / r["name"][:-len(".pfm")]
+        d = r["depth"].numpy()
+        lo, hi = mvs_depth_bounds(cfg, r["depth_values"])
+        png = (read_depth_png(f"{stem}_TransMVSNet.png")
+               * predict.DTU_DEPTH_UNSCALE)
+        maps.append(dict(
+            name=r["name"], shape=list(d.shape),
+            finite=bool(np.isfinite(d).all()), depth_min=float(d.min()),
+            depth_max=float(d.max()), reach=[lo, hi],
+            share_in_global_range=float(
+                ((d >= r["depth_values"][0])
+                 & (d <= r["depth_values"][-1])).mean()),
+            png_max_abs_err=float(np.abs(png - d).max()),
+            pngs=[Path(f"{stem}_TransMVSNet{x}.png").exists()
+                  for x in ("", "_conf", "_vis")]))
+    emit("mvs_write_prediction", config="TransMVSNet default (ndepths "
+         "48/32/8, ratios 4/2/1, FMT 8 layers, base_channels 8, f32), DTU "
+         "fixture 512×640, 4 views", nvidia_smi=smi, cli_s=t_cli,
+         **map_times(t0, records), peak_mem_bytes=peak, launches=launches,
+         launches_per_map=[r["launches"] for r in records],
+         loaded_bit_for_bit=same, written=len(written), depth_maps=maps)
+    check(same, "the loaded TransMVSNet weights are not the checkpoint's")
+    check(len(written) == 4 and len(records) == 4, f"{len(written)} maps")
+    check(all(r["launches"] == (0, 0, per_map) for r in records)
+          and launches == (0, 0, 4 * per_map),
+          f"launches per map {[r['launches'] for r in records]}, expected "
+          f"(0, 0, {per_map})")
+    lsb = DEPTH_PNG_SCALE * predict.DTU_DEPTH_UNSCALE
+    for m in maps:
+        check(m["shape"] == list(MVS_WRITE_HW) and m["finite"]
+              and m["reach"][0] <= m["depth_min"]
+              and m["depth_max"] <= m["reach"][1], f"depth map {m}")
+        check(m["pngs"] == [True] * 3 and m["png_max_abs_err"] <= 1.001 * lsb,
+              f"PNGs of {m}")
+    return dict(launches=launches, records=records, model=models[0])
+
+
+def capture_mvs_gathers(model, sample, base_channels):
+    """{kind: (table, idx)} of the first row gather of each kind in one
+    TransMVSNet forward: the plane sweep's at stages 1, 2 and 3 (rows of
+    4, 2 and 1 × ``base_channels`` f32) and a DCN tap at full resolution
+    (stage 3's head)."""
+    from diner_tpu_torch.mvs import dcn, predict
+    from diner_tpu_torch.ops import gather_cuda, grid_sample
+    V, H, W = sample["imgs"].shape[:3]
+    bc = base_channels
+    sweep = {4 * bc: "sweep_stage1", 2 * bc: "sweep_stage2",
+             bc: "sweep_stage3"}
+    found = {}
+
+    def spy(kind_of):
+        def gather(table, idx):
+            kind = kind_of(table)
+            if kind is not None and kind not in found:
+                found[kind] = (table, idx)
+            return gather_cuda.row_gather(table, idx)
+        return gather
+
+    saved = grid_sample.row_gather, dcn.row_gather
+    grid_sample.row_gather = spy(lambda t: sweep.get(t.shape[1]))
+    dcn.row_gather = spy(lambda t: "dcn_stage3" if t.shape[0] == V * H * W
+                         else None)
+    try:
+        predict.run_model(model, sample, "cuda")
+    finally:
+        grid_sample.row_gather, dcn.row_gather = saved
+    return found
+
+
+def phase_gather_mvs(model):
+    """Kernel C at the indices a real 512×640 depth map hands it: one
+    plane-sweep chunk of each stage (rows of 128, 64 and 32 B) and one
+    stage-3 DCN tap (128 B), warm and with L2 flushed, beside
+    ``index_select``; each must equal it exactly. Before that, one warm
+    forward of that map under the profiler (``mvs_profile``)."""
+    from diner_tpu_torch.mvs import predict
+    from diner_tpu_torch.mvs.datasets import MVSDTUDataset
+    from diner_tpu_torch.ops import gather_cuda
+    sample = MVSDTUDataset(MVS_FIXTURE, MVS_FIXTURE / "list.txt", "val")[0]
+    profile_once("mvs_profile",
+                 lambda: predict.run_model(model, sample, "cuda"))
+    found = capture_mvs_gathers(model, sample, model.cfg.base_channels)
+    check(sorted(found) == ["dcn_stage3", "sweep_stage1", "sweep_stage2",
+                            "sweep_stage3"], f"captured {sorted(found)}")
+    rows = []
+    with torch.no_grad():
+        for kind, (table, idx) in sorted(found.items()):
+            size = table.element_size()
+            regime, unit = gather_cuda.plan(table.shape[1] * size,
+                                            table.stride(0) * size,
+                                            table.data_ptr(), 0)
+            row = dict(case=f"mvs_{kind}_c{table.shape[1]}_f32", kind=kind,
+                       regime=regime, unit_bytes=unit,
+                       **gather_row(table, idx, runs=20, cold=True))
+            emit("gather_mvs", **row)
+            check(row["exact"], f"row gather kernel vs plain {row}")
+            rows.append(row)
+    del found
+    torch.cuda.empty_cache()
+    return rows
+
+
+def write_test_scan(root, cams):
+    """The fixture's renders (light 3) of ``cams`` as a test-layout scan:
+    ``images/<id>.jpg``, ``cams/<id>_cam.txt`` (the renders' 1200×1600
+    intrinsics, which the test set divides by 4, and the depth line
+    ``425.0 2.5``) and ``pair.txt`` with every other view as a source."""
+    from PIL import Image
+
+    from diner_tpu_torch.data.dtu_fixture import (fixture_intrinsics,
+                                                  make_camera)
+    _, K = fixture_intrinsics()
+    scan = root / "scan1"
+    (scan / "images").mkdir(parents=True)
+    (scan / "cams").mkdir()
+    for vid in cams:
+        Image.open(MVS_FIXTURE / "Rectified" / "scan1_train" /
+                   f"rect_{vid + 1:03d}_3_r5000.png").convert("RGB").save(
+            scan / "images" / f"{vid:08d}.jpg", quality=95)
+        lines = ["extrinsic"]
+        lines += [" ".join(f"{x:.6f}" for x in row)
+                  for row in make_camera(vid)]
+        lines += ["", "intrinsic"]
+        lines += [" ".join(f"{x:.6f}" for x in row) for row in K]
+        lines += ["", "425.0 2.5"]
+        (scan / "cams" / f"{vid:08d}_cam.txt").write_text(
+            "\n".join(lines) + "\n")
+    lines = [str(len(cams))]
+    for ref in cams:
+        srcs = [s for s in cams if s != ref]
+        lines += [str(ref), " ".join([str(len(srcs))]
+                                     + [f"{s} {100.0 - abs(s - ref)}"
+                                        for s in srcs])]
+    (scan / "pair.txt").write_text("\n".join(lines) + "\n")
+
+
+def fuse_ground_truth(cams):
+    """The fixture's ground-truth depths of ``cams`` (consistent by
+    construction) with confidence 1, every other view a source, fused by
+    the reprojection-consistency backend and by the C++ library at
+    ``scripts/mvs_test.py``'s defaults (conf 0.9, 3 consistent views) →
+    each backend's points, share of the pixels and seconds."""
+    from diner_tpu_torch.data.dtu_fixture import (fixture_intrinsics,
+                                                  make_camera)
+    from diner_tpu_torch.data.io import read_pfm, read_rgb
+    from diner_tpu_torch.fusion.consistency import filter_and_fuse
+    from diner_tpu_torch.fusion.fusion import fake_normals, fuse_depth_maps
+    K = fixture_intrinsics()[1].astype(np.float32)
+    depths = [np.asarray(read_pfm(MVS_FIXTURE / "Depths" / "scan1" /
+                                  f"depth_map_{c:04d}.pfm")[0], np.float32)
+              for c in cams]
+    images = [read_rgb(MVS_FIXTURE / "Rectified" / "scan1_train" /
+                       f"rect_{c + 1:03d}_3_r5000.png") for c in cams]
+    Es = [make_camera(c).astype(np.float32) for c in cams]
+    n = len(cams)
+    pairs = [(i, [j for j in range(n) if j != i]) for i in range(n)]
+    pixels = sum(d.size for d in depths)
+    t0 = time.perf_counter()
+    pts, _, _ = filter_and_fuse(depths, [np.ones_like(d) for d in depths],
+                                [K] * n, Es, pairs, images=images,
+                                conf_thresh=0.9, thres_view=3)
+    t1 = time.perf_counter()
+    P = np.stack([(K @ E[:3]).astype(np.float32) for E in Es])
+    fused = fuse_depth_maps(np.stack(depths),
+                            np.stack([fake_normals(d) for d in depths]), P,
+                            np.full(n, K[0, 0], np.float32),
+                            np.stack(images), num_consistent=3)
+    t2 = time.perf_counter()
+    return dict(pixels=pixels, normal_points=len(pts),
+                normal_share=len(pts) / pixels, normal_s=t1 - t0,
+                gipuma_points=len(fused), gipuma_share=len(fused) / pixels,
+                gipuma_s=t2 - t1)
+
+
+def phase_mvs_test(smi):
+    """``python -m diner_tpu_torch.mvs.evaluate`` (``main`` in this
+    process) on a test-layout scan of the fixture's 5 views at the
+    script's defaults (864×1152, 5 views, the checkpoint of
+    ``mvs_write_prediction``), fused with ``--filter_method normal`` and
+    then ``gipuma`` (a second run). Checks: kernel C
+    ``MVS_C_PER_MAP[5]`` times per map; every PFM finite and 864×1152; a
+    PLY that parses with the reported count. Then the fixture's
+    ground-truth depths go through both backends, which must keep more than
+    ``MVS_GT_FUSED_SHARE`` of the pixels: seeded weights give no
+    consistent depth, so this shows fusion working on the card's host."""
+    from diner_tpu_torch.data.io import read_pfm
+    from diner_tpu_torch.fusion.fusion import read_ply
+    from diner_tpu_torch.mvs import evaluate as mvs_evaluate
+    from diner_tpu_torch.mvs.model import TransMVSNetConfig
+    cams = sorted(MVS_SOURCE_CAMS + (MVS_TARGET_CAM,))
+    check(len(cams) == MVS_TEST_VIEWS, f"{len(cams)} test views")
+    per_map = MVS_C_PER_MAP[MVS_TEST_VIEWS]
+    check(mvs_row_gathers_per_map(TransMVSNetConfig(), MVS_TEST_VIEWS)
+          == per_map, "derived kernel C launches per test map")
+    test_root = MVS_DIR / "test"
+    write_test_scan(test_root, cams)
+    runs = {}
+    for method in ("normal", "gipuma"):
+        out = MVS_DIR / f"test_{method}"
+        records = []
+        restore = spy_run_model(records)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            res = mvs_evaluate.main([
+                "--testpath", str(test_root), "--testlist", "scan1",
+                "--ckpt", str(MVS_DIR / "TransMVSNet.ckpt"), "--outdir",
+                str(out), "--filter_method", method, "--max_h",
+                str(MVS_TEST_HW[0]), "--max_w", str(MVS_TEST_HW[1]),
+                "--num_view", str(MVS_TEST_VIEWS), "--device", "cuda"])
+            t_cli = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = read_counts()
+        pfms = sorted((out / "scan1").glob("*/*.pfm"))
+        arrays = [read_pfm(p)[0] for p in pfms]
+        names, floats, colors = read_ply(res["scan1"]["ply"])
+        runs[method] = dict(
+            **map_times(t0, records), cli_s=t_cli,
+            fusion_s=t0 + t_cli - records[-1]["end"],
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches=launches,
+            launches_per_map=[r["launches"] for r in records],
+            pfms=len(pfms), pfms_finite=all(np.isfinite(a).all()
+                                            for a in arrays),
+            pfm_shapes=sorted({a.shape for a in arrays}),
+            ply_properties=names, ply_colors=colors is not None,
+            points=res["scan1"]["points"])
+        check(len(records) == len(cams) and all(
+            r["launches"] == (0, 0, per_map) for r in records),
+            f"{method}: launches per map {runs[method]['launches_per_map']}, "
+            f"expected (0, 0, {per_map})")
+        check(len(pfms) == 2 * len(cams) and runs[method]["pfms_finite"]
+              and runs[method]["pfm_shapes"] == [MVS_TEST_HW],
+              f"{method}: PFMs {len(pfms)}, shapes "
+              f"{runs[method]['pfm_shapes']}")
+        check(len(floats) == runs[method]["points"],
+              f"{method}: PLY of {len(floats)} vertices")
+    gt = fuse_ground_truth(cams)
+    emit("mvs_test", config="scripts/mvs_test.py defaults (864×1152, 5 "
+         "views, TransMVSNet default, f32), fixture scan of 5 views",
+         nvidia_smi=smi, runs=runs, ground_truth_fusion=gt)
+    check(gt["normal_share"] > MVS_GT_FUSED_SHARE
+          and gt["gipuma_share"] > MVS_GT_FUSED_SHARE,
+          f"ground-truth fusion kept {gt['normal_share']} / "
+          f"{gt['gipuma_share']} of the pixels")
+    return {m: r["launches"] for m, r in runs.items()}
+
+
+def make_diner_tree(mvs_root, diner_root):
+    """DINER's layout of the fixture, whose loader reads the 512×640
+    canvas: each render ×1/2 (bilinear) and cropped as ``prepare_img``
+    crops (rows 44:556, cols 80:720), the light links kept; ``Depths`` and
+    ``Cameras`` linked to the MVS tree's, so DINER reads the PNGs
+    ``write_prediction`` wrote there; a split file naming the scan."""
+    import os
+
+    from PIL import Image
+    src = mvs_root / "Rectified" / "scan1_train"
+    dst = diner_root / "Rectified" / "scan1_train"
+    dst.mkdir(parents=True)
+    for p in sorted(src.iterdir()):
+        if p.is_symlink():
+            (dst / p.name).symlink_to(os.readlink(p))
+            continue
+        img = Image.open(p)
+        w, h = img.size[0] // 2, img.size[1] // 2
+        img = img.resize((w, h), Image.BILINEAR)
+        sw, sh = (w - 640) // 2, (h - 512) // 2
+        img.crop((sw, sh, sw + 640, sh + 512)).save(dst / p.name)
+    for sub in ("Depths", "Cameras"):
+        (diner_root / sub).symlink_to((mvs_root / sub).resolve())
+    (diner_root / "splits").mkdir()
+    (diner_root / "splits" / "dtu_val_all.txt").write_text("scan1\n")
+
+
+def phase_mvs_pipeline(wp):
+    """TransMVSNet's depth maps feeding DINER: the port's
+    ``DTUDataset(depth_fname="TransMVSNet")`` reads the PNGs of
+    ``mvs_write_prediction`` as the source views of target camera
+    ``MVS_TARGET_CAM``, and the DINER eval step at ``dtu_eval_config()``
+    (the fixture's znear / zfar) renders one 512×640 image from them.
+    Checks: the sample's source depths are the PNGs decoded and rescaled
+    exactly, and within one PNG unit of the depth maps the model made;
+    a finite image; kernels A 80 and C 480 times, B never."""
+    from diner_tpu_torch.data.dtu import DTU_SCALE_FACTOR, DTUDataset
+    from diner_tpu_torch.data.io import DEPTH_PNG_SCALE, read_depth_png
+    from diner_tpu_torch.mvs.predict import DTU_DEPTH_UNSCALE
+    from diner_tpu_torch.train.diner import create_model, make_eval_step
+    root = MVS_DIR / "diner"
+    make_diner_tree(MVS_FIXTURE, root)
+    ds = DTUDataset(root, "val", downsample=1.0, depth_fname="TransMVSNet",
+                    split_dir=root / "splits", only_cams=[MVS_TARGET_CAM])
+    sample = ds[0]
+    made = {int(r["name"][-8:-4]): r["depth"].numpy() for r in wp["records"]}
+    decoded_equal, model_err = True, 0.0
+    for j, cam in enumerate(MVS_SOURCE_CAMS):
+        got = sample["src_depths"][j, ..., 0]
+        d = read_depth_png(MVS_FIXTURE / "Depths" / "scan1" /
+                           f"depth_map_{cam:04d}_TransMVSNet.png")
+        d = d / DTU_SCALE_FACTOR
+        decoded_equal &= np.array_equal(got, d * ds.scale_factor)
+        model_err = max(model_err, float(np.abs(
+            got / ds.scale_factor - made[cam]).max()))
+
+    cfg = dataclasses.replace(dtu_eval_config(), znear=ds.znear,
+                              zfar=ds.zfar)
+    batch = {k: v[None] for k, v in sample.items()
+             if isinstance(v, np.ndarray)}
+    H, W = batch["target_rgb"].shape[1:3]
+    n_chunks = -(-H * W // cfg.renderer.ray_chunk)
+    model = create_model(cfg, batch, seed=0)
+    step = make_eval_step(model, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rgb, depth = step(batch, generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    launches = read_counts()
+    emit("mvs_pipeline", config="DTU eval protocol (bf16) on the fixture, "
+         "source depths from mvs_write_prediction", target_cam=MVS_TARGET_CAM,
+         src_view_ids=sample["src_view_ids"].tolist(),
+         src_depths_are_the_pngs=decoded_equal,
+         src_depth_max_abs_err_vs_model=model_err, render_s=t_render,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+         share_depth_gt0=float((depth > 0).float().mean()),
+         rgb_mean=float(rgb.mean()))
+    check(sample["src_view_ids"].tolist() == list(MVS_SOURCE_CAMS),
+          f"source views {sample['src_view_ids']}")
+    check(decoded_equal, "DTUDataset's source depths are not the PNGs")
+    check(model_err <= 1.001 * DEPTH_PNG_SCALE * DTU_DEPTH_UNSCALE,
+          f"source depths {model_err} from the model's maps")
+    check(launches == (n_chunks, 0, 6 * n_chunks),
+          f"DINER render launched kernels A, B and C {launches} times, "
+          f"expected ({n_chunks}, 0, {6 * n_chunks})")
+    check_image(rgb, depth, 512, 640)
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mvs_small_reference():
+    """The default TransMVSNet at ``MVS_SMALL_HW``, 3 views, on the card
+    against the same model and inputs on the CPU (TF32 off): where both
+    sides' hypotheses agree, probability volumes and confidences within
+    1e-4, and the same winning bin at every pixel whose top two
+    probabilities differ by more than 1e-4; the other pixels are counted.
+    At least 90 % of each stage's pixels must be compared."""
+    import copy
+    H, W = MVS_SMALL_HW
+    V = 3
+    model = seeded_transmvsnet(2)
+    g = torch.Generator().manual_seed(3)
+    imgs = torch.rand((1, V, H, W, 3), generator=g)
+    K = torch.tensor([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]])
+    projs = {}
+    for stage, scale in (("stage1", 4), ("stage2", 2), ("stage3", 1)):
+        pm = torch.zeros(1, V, 2, 4, 4)
+        for v in range(V):
+            pm[0, v, 0] = torch.eye(4)
+            pm[0, v, 0, 0, 3] = 0.1 * v
+            pm[0, v, 1, :3, :3] = K
+            pm[0, v, 1, :2] /= scale
+        projs[stage] = pm
+    dv = torch.linspace(2.0, 6.0, 192)[None]
+    with torch.no_grad():
+        ref = model(imgs, projs, dv)
+        gpu = copy.deepcopy(model).cuda()
+        got = gpu(imgs.cuda(), {k: p.cuda() for k, p in projs.items()},
+                  dv.cuda())
+    stages, ok = {}, True
+    for stage in ("stage1", "stage2", "stage3"):
+        r = {k: ref[stage][k].numpy() for k in ref[stage]}
+        c = {k: got[stage][k].cpu().numpy() for k in got[stage]}
+        tol = 1e-5 * float(np.abs(r["depth_values"]).max())
+        same = np.all(np.abs(c["depth_values"] - r["depth_values"]) <= tol,
+                      axis=1)
+        top = np.sort(r["prob_volume"], axis=1)
+        decisive = top[:, -1] - top[:, -2] > 1e-4
+        keep = same & decisive
+        prob_err = float(np.abs(c["prob_volume"] - r["prob_volume"])
+                         .max(axis=1)[same].max())
+        conf_err = float(np.abs(c["photometric_confidence"]
+                                - r["photometric_confidence"])[same].max())
+        wta_differs = int((np.argmax(c["prob_volume"], 1)
+                           != np.argmax(r["prob_volume"], 1))[keep].sum())
+        depth_err = float(np.abs(c["depth"] - r["depth"])[keep].max())
+        stages[stage] = dict(
+            pixels=int(same.size), hypotheses_differ=int((~same).sum()),
+            ties=int((same & ~decisive).sum()), compared=int(keep.sum()),
+            prob_max_abs_err=prob_err, conf_max_abs_err=conf_err,
+            wta_bin_differs=wta_differs, depth_max_abs_err=depth_err)
+        ok &= (prob_err <= 1e-4 and conf_err <= 1e-4 and wta_differs == 0
+               and depth_err <= tol and keep.mean() >= 0.9)
+    emit("mvs_small_reference", hw=list(MVS_SMALL_HW), views=V,
+         prob_tol=1e-4, tie_margin=1e-4, stages=stages)
+    check(ok, f"TransMVSNet card vs CPU: {stages}")
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def phases_mvs(smi):
+    """The TransMVSNet phases in order; their files are deleted after.
+    Returns {path: (A, B, C) launches} and kernel C's MVS rows."""
+    phase_mvs_fixture()
+    wp = phase_mvs_write_prediction(smi)
+    gather_rows = phase_gather_mvs(wp.pop("model"))
+    test_l = phase_mvs_test(smi)
+    pipeline_l = phase_mvs_pipeline(wp)
+    phase_mvs_small_reference()
+    shutil.rmtree(MVS_DIR, ignore_errors=True)
+    return ({"mvs_write_prediction": wp["launches"],
+             "mvs_test": test_l["normal"],
+             "mvs_test_gipuma": test_l["gipuma"],
+             "mvs_pipeline": pipeline_l}, gather_rows)
+
+
+def clean_outputs():
+    """Delete what the phases wrote under ``OUT_DIR`` but its logs (the
+    JSON log and the profile tables)."""
+    for p in OUT_DIR.iterdir():
+        if p.is_dir():
+            shutil.rmtree(p, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs an "
@@ -1992,14 +2645,18 @@ def main():
     torch.cuda.empty_cache()
     predict_l, folder = phase_predict(smi, build_s)
     phase_pretrained(folder)
+    torch.cuda.empty_cache()
+    mvs_l, mvs_gather_rows = phases_mvs(smi)
+    torch.cuda.empty_cache()
     train_loop_l = phase_train_loop()
+    clean_outputs()
 
     paths = {"eval_render": eval_l, "eval_render_pairs": pairs_l,
              "eval_render_pruned": pruned_l, "train_steps": train_l,
              "train_steps_pruned": train_pruned_l,
              "predict": predict_l["nsamples64"],
              "predict_nsamples32": predict_l["nsamples32"],
-             "train_loop": train_loop_l}
+             **mvs_l, "train_loop": train_loop_l}
 
     def entry(name, row_list, main, replaces, which, library_ms=None):
         by_path = {p: launches[which] for p, launches in paths.items()}
@@ -2056,7 +2713,11 @@ def main():
              path_cases=[{k: r[k] for k in ("config", "call", "kind", "P",
                                             "distinct_rows", "ms_cold_l2",
                                             "library_ms_cold_l2") + timed}
-                         for r in LOG if r["phase"] == "gather_path"]),
+                         for r in LOG if r["phase"] == "gather_path"],
+             mvs_cases=[{k: r[k] for k in ("case", "regime", "C", "P",
+                                           "distinct_rows", "ms_cold_l2",
+                                           "library_ms_cold_l2") + timed}
+                        for r in mvs_gather_rows]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

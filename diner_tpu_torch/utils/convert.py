@@ -250,3 +250,162 @@ def reference_to_state_dict(sd: Mapping, template: Mapping,
         raise KeyError(f"checkpoint lacks {missing[0]} "
                        f"({len(missing)} model keys in all)")
     return out
+
+
+# ----------------------------------------------------------- TransMVSNet
+
+def _dcn_weight(k: np.ndarray) -> np.ndarray:
+    """JAX DCN kernel (9·C, O), tap-major → torch (O, C, 3, 3)."""
+    C = k.shape[0] // 9
+    return k.reshape(3, 3, C, -1).transpose(3, 2, 0, 1)
+
+
+def _conv3d_weight(k: np.ndarray) -> np.ndarray:
+    """flax (kD, kH, kW, I, O) → torch Conv3d (O, I, kD, kH, kW)."""
+    return np.transpose(k, (4, 3, 0, 1, 2))
+
+
+def _deconv3d_weight(k: np.ndarray) -> np.ndarray:
+    """The JAX package's interior-pad VALID conv kernel (kD, kH, kW, I, O),
+    spatially flipped → torch ConvTranspose3d (I, O, kD, kH, kW)."""
+    return np.transpose(k, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
+
+
+def transmvsnet_flax_to_state_dict(variables: Mapping, num_stage: int = 3,
+                                   n_fmt_layers: int = 8
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX package's TransMVSNet ``{"params", "batch_stats"}`` (numpy)
+    → the port's ``TransMVSNet.state_dict()``: the inverse of
+    ``diner_tpu/utils/torch_convert.py:convert_transmvsnet``, plus the
+    SuperGlue PE's MLP where the model has one. BN ``num_batches_tracked``
+    is 0."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def get(tree, path):
+        for p in path:
+            tree = tree[p]
+        return np.asarray(tree)
+
+    def put(key, value):
+        sd[key] = torch.tensor(np.ascontiguousarray(value),
+                               dtype=torch.float32)
+
+    def bn(src, dst):
+        put(dst + ".weight", get(params, src + ("scale",)))
+        put(dst + ".bias", get(params, src + ("bias",)))
+        put(dst + ".running_mean", get(stats, src + ("mean",)))
+        put(dst + ".running_var", get(stats, src + ("var",)))
+        sd[dst + ".num_batches_tracked"] = torch.tensor(0)
+
+    def conv_bn(src, dst, kernel=_kernel):
+        put(dst + ".conv.weight", kernel(get(params, src + ("conv", "kernel"))))
+        bn(src + ("bn",), dst + ".bn")
+
+    def dense(src, dst, kernel=_kernel):
+        put(dst + ".weight", kernel(get(params, src + ("kernel",))))
+        put(dst + ".bias", get(params, src + ("bias",)))
+
+    F = ("feature",)
+    for i, n in ((0, 2), (1, 3), (2, 3)):
+        for j in range(n):
+            conv_bn(F + (f"conv{i}_{j}",), f"feature.conv{i}.{j}")
+    for n in (1, 2, 3):
+        conv_bn(F + (f"out{n}_conv",), f"feature.out{n}.0")
+        for slot, idx in ((0, 1), (1, 4), (2, 7)):
+            src = F + (f"out{n}_dcn{slot}",)
+            dense(src, f"feature.out{n}.{idx}", _dcn_weight)
+            dense(src + ("conv_offset_mask",),
+                  f"feature.out{n}.{idx}.conv_offset_mask")
+        for slot, idx in ((0, 2), (1, 5)):
+            bn(F + (f"out{n}_bn{slot}",), f"feature.out{n}.{idx}")
+    for n in (1, 2):
+        dense(F + (f"inner{n}",), f"feature.inner{n}")
+
+    P = ("FMT_with_pathway",)
+    for i in range(n_fmt_layers):
+        src = P + ("FMT", f"layer_{i}")
+        dst = f"FMT_with_pathway.FMT.layers.{i}"
+        for proj in ("query", "key", "value", "out"):
+            dense(src + ("attention", f"{proj}_projection"),
+                  f"{dst}.attention.{proj}_projection")
+        for lin in ("linear1", "linear2"):
+            dense(src + (lin,), f"{dst}.{lin}")
+        for nrm in ("norm1", "norm2"):
+            put(f"{dst}.{nrm}.weight", get(params, src + (nrm, "scale")))
+            put(f"{dst}.{nrm}.bias", get(params, src + (nrm, "bias")))
+    pe = params["FMT_with_pathway"]["FMT"].get("pos_encoding")
+    if pe is not None:  # SuperGlue PE: Dense ↔ Conv1d(k=1), kenc.encoder.j
+        def conv1d(w):
+            return w.T[:, :, None]
+        src = P + ("FMT", "pos_encoding")
+        dst = "FMT_with_pathway.FMT.pos_encoding.kenc.encoder"
+        for name, j in (("mlp_0", 0), ("mlp_1", 3), ("mlp_out", 6)):
+            dense(src + (name,), f"{dst}.{j}", conv1d)
+        for name, j in (("bn_0", 1), ("bn_1", 4)):
+            bn(src + (name,), f"{dst}.{j}")
+    for n in (1, 2):
+        for m in ("dim_reduction", "smooth"):
+            put(f"FMT_with_pathway.{m}_{n}.weight",
+                _kernel(get(params, P + (f"{m}_{n}", "kernel"))))
+
+    for s in range(num_stage):
+        src0 = (f"cost_reg_{s}",)
+        dst0 = f"cost_regularization.{s}"
+        for c in range(7):
+            conv_bn(src0 + (f"conv{c}",), f"{dst0}.conv{c}", _conv3d_weight)
+        for c in (7, 9, 11):
+            conv_bn(src0 + (f"conv{c}",), f"{dst0}.conv{c}", _deconv3d_weight)
+        put(f"{dst0}.prob.weight",
+            _conv3d_weight(get(params, src0 + ("prob", "kernel"))))
+
+    D = ("depth_net", "pixel_wise_net")
+    for c in (0, 1):
+        conv_bn(D + (f"conv{c}",), f"DepthNet.pixel_wise_net.conv{c}",
+                _conv3d_weight)
+    dense(D + ("conv2",), "DepthNet.pixel_wise_net.conv2", _conv3d_weight)
+    return sd
+
+
+def transmvsnet_reference_state_dict(blob, template: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """A reference TransMVSNet checkpoint → the port's ``TransMVSNet``
+    state dict, keyed and shaped as ``template`` (the model's own
+    ``state_dict()``).
+
+    ``blob`` is the reference trainer's ``{"model": state_dict, …}`` or a
+    bare state dict, its keys with or without DDP's ``module.`` prefix.
+    ``num_batches_tracked`` is dropped (the template's is kept), and so is
+    a ``pos_encoding`` entry the model has no place for (the sine PE holds
+    no weights). Any other unknown key, a model key the checkpoint lacks,
+    or a shape mismatch raises, naming the key. Tensors come out f32 on
+    the CPU.
+    """
+    sd = blob.get("model", blob) if isinstance(blob, Mapping) else blob
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        if not hasattr(value, "shape"):
+            continue
+        name = key.removeprefix("module.")
+        if name.endswith("num_batches_tracked") or (
+                ".pos_encoding." in name and name not in template):
+            continue
+        if name not in template:
+            raise KeyError(f"checkpoint key {key} has no place in the model "
+                           "(architecture/config mismatch?)")
+        value = (value.detach().cpu() if isinstance(value, torch.Tensor)
+                 else torch.as_tensor(np.asarray(value)))
+        if tuple(template[name].shape) != tuple(value.shape):
+            raise ValueError(
+                f"shape mismatch at {key}: model "
+                f"{tuple(template[name].shape)} vs ckpt {tuple(value.shape)}")
+        out[name] = value.to(torch.float32)
+    for name, value in template.items():
+        if name.endswith("num_batches_tracked"):
+            out[name] = value.detach().cpu().clone()
+    missing = sorted(set(template) - set(out))
+    if missing:
+        raise KeyError(f"checkpoint lacks {missing[0]} "
+                       f"({len(missing)} model keys in all)")
+    return out

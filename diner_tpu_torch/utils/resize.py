@@ -1,9 +1,14 @@
-"""Bilinear resize with align_corners=True, as two small matrix products.
+"""Linear and nearest resizes as small matrix products and repeats.
 
-Port of ``resize_bilinear_align_corners`` from ``diner_tpu/utils/resize.py``
-with a port-side copy of its ``_interp_matrix``. The matrices are cast to
-the input dtype, as in the JAX package, so a bf16 pyramid stays bf16 and
-rounds its interpolation weights as the reference does.
+Port of ``diner_tpu/utils/resize.py`` with a port-side copy of its
+``_interp_matrix`` (torch ``F.interpolate`` semantics, ``align_corners``
+either way). The matrices are cast to the input dtype, as in the JAX
+package, so a bf16 pyramid stays bf16 and rounds its interpolation weights
+as the reference does.
+
+The JAX functions act on channels-last axes; here each takes the axes it
+resizes (``axes``, defaulting to the JAX package's), so the channels-first
+MVS model resizes its (N, C, H, W) maps and (B, D, H, W) volumes in place.
 """
 
 from __future__ import annotations
@@ -46,3 +51,39 @@ def resize_bilinear_align_corners(x, out_h: int, out_w: int):
                          device=x.device)
     x = torch.einsum("oh,...hwc->...owc", Ah, x)
     return torch.einsum("ow,...hwc->...hoc", Aw, x)
+
+
+def resize_linear_axis(x, out_n: int, axis: int, align_corners: bool = False):
+    """1-D linear resize of ``axis`` (torch ``F.interpolate`` semantics)."""
+    n_in = x.shape[axis]
+    if n_in == out_n:
+        return x
+    A = torch.as_tensor(_interp_matrix(n_in, out_n, align_corners),
+                        dtype=x.dtype, device=x.device)
+    x = torch.movedim(x, axis, -1)
+    x = torch.einsum("on,...n->...o", A, x)
+    return torch.movedim(x, -1, axis)
+
+
+def resize_linear_2d(x, out_h: int, out_w: int, align_corners: bool = False,
+                     axes=(-3, -2)):
+    """Bilinear resize of the (H, W) ``axes``: channels-last by default."""
+    x = resize_linear_axis(x, out_h, axes[0], align_corners)
+    return resize_linear_axis(x, out_w, axes[1], align_corners)
+
+
+def resize_trilinear(x, out_d: int, out_h: int, out_w: int,
+                     align_corners: bool = False, axes=(-4, -3, -2)):
+    """Trilinear resize of the (D, H, W) ``axes``: channels-last by
+    default."""
+    for n, axis in zip((out_d, out_h, out_w), axes):
+        x = resize_linear_axis(x, n, axis, align_corners)
+    return x
+
+
+def resize_nearest_2x(x, axes=(-3, -2)):
+    """torch ``F.interpolate(scale_factor=2, mode='nearest')`` of the
+    (H, W) ``axes``: channels-last by default."""
+    for axis in axes:
+        x = torch.repeat_interleave(x, 2, dim=axis)
+    return x

@@ -39,7 +39,10 @@ def test_import_pulls_in_no_jax():
               "data.synthetic_dataset", "evaluation.metrics",
               "evaluation.suite", "utils.meters", "utils.visual",
               "utils.pretrained", "utils.convert", "import_pretrained",
-              "predict", "evaluate"):
+              "predict", "evaluate", "mvs.__main__", "mvs.blocks", "mvs.dcn",
+              "mvs.fmt", "mvs.homography", "mvs.model", "mvs.datasets",
+              "mvs.eval_datasets", "mvs.predict", "mvs.evaluate",
+              "fusion.consistency", "fusion.fusion", "data.dtu_fixture"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -124,6 +127,20 @@ def test_user_entry_points_default_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setenv("DINER_TPU_PRETRAINED", str(tmp_path))
     assert import_main([]) == []
     assert load_vgg19() is None  # nothing to load: no device touched
+
+
+def test_mvs_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The two TransMVSNet CLIs run on the card unless --device cpu; the
+    device is resolved before any data is read or a model is built."""
+    from diner_tpu_torch.mvs.__main__ import main as mvs_main
+    from diner_tpu_torch.mvs.evaluate import main as mvs_evaluate_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mvs_main(["--mode", "write_prediction", "--trainpath",
+                  str(tmp_path), "--trainlist", str(tmp_path / "list.txt")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mvs_evaluate_main(["--testpath", str(tmp_path), "--testlist",
+                           "scan1"])
 
 
 def test_kernel_build_goes_to_ignored_build_dir():
