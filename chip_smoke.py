@@ -3,7 +3,10 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (kernel A, the compositing forward; kernel B, its backward; kernel C, the
-row gather), holds each against its plain PyTorch version on the card
+row gather; the DCN sampler's backward), holds each against its plain
+PyTorch version on the card (the DCN backward at edge positions, odd and
+even W, C = 5 and 32, with and without its scale, f32 and bf16, and at
+the stage-3 tap of the 512×640 TransMVSNet training step)
 (kernel B at K = 1-100 around its 32-sample chunks and its register path,
 R = 4096 and 4097, white or not, with and without g_depth and g_w, strided
 or contiguous rgb, random samples, samples at alpha ~ 1 and a large
@@ -64,6 +67,18 @@ set to 0 just before each and read just after:
   finite depth inside the cascade's reach, kernel C 456 (4 views) and 500
   (5 views) times per map, fused shares of the ground truth, the source
   depths DINER reads equal to the PNGs, A 80 and C 480 for its render.
+- TransMVSNet training (``mvs_train``): ``python -m diner_tpu_torch.mvs
+  --mode train`` in subprocesses at the CLI's defaults (512×640, 4 views,
+  48/32/8, 192 hypotheses, batch 1) on the fixture's scan: f32 and bf16
+  for 10 steps, autograd of the DCN gathers for 3, ``--remat`` full and
+  selective for 1, a second process resuming the f32 run for 2; then
+  ``write_prediction`` from the trained checkpoint and ``--mode profile``;
+  one warm step under the profiler (``mvs_train_profile``), and one small
+  step on the card against the CPU (``mvs_train_small_reference``).
+  Checks: finite losses, no step skipped, kernel C 456 (912 full remat,
+  588 selective) and the DCN backward 81 times per step, each process's
+  peak within 0.95 of the card, the resume, the written maps, the trace;
+  loss, gradients and BN statistics card vs CPU.
 - the training entry point (``train_loop``): ``configs/train_dtu.yaml``
   through the port's ``load_train_config`` with ``data`` replaced by the
   sphere at 512×640 (4 views, the config's 4 scenes a step, f32) and a
@@ -99,6 +114,7 @@ Run from the repository root:  python3 chip_smoke.py
 import dataclasses
 import itertools
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -108,6 +124,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from diner_tpu_torch.utils.profiling import (
+    cold_device_time_ms,
+    cuda_time_ms,
+    device_time_ms,
+    time_fn,
+)
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "outputs" / "chip_smoke"  # git-ignored
@@ -131,70 +154,6 @@ def emit(phase, **fields):
 def check(cond, what):
     if not cond:
         raise SystemExit(f"chip_smoke: check failed: {what}")
-
-
-def cuda_time_ms(fn, runs=30, warmup=5):
-    """Median time of one warm Python call of ``fn`` between two CUDA
-    events (``call_ms``): on an idle device it includes the host work the
-    call does before its kernels start (checks, allocation, the launch)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_time_ms(fn, n=50, replays=5):
-    """Device time of one call of ``fn`` (``ms``): ``n`` back-to-back calls
-    captured in one CUDA graph on PyTorch's current stream, the graph
-    replayed ``replays`` times between CUDA events, the median replay over
-    ``n``. Only the kernels replay, not the host work of the call. Outputs
-    freed inside the capture are reused by the next call, so the graph
-    holds about one call's memory."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    del graph
-    torch.cuda.empty_cache()
-    return statistics.median(times)
-
-
-FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
-
-
-def cold_device_time_ms(fn, n=20):
-    """Device time of ``fn`` with L2 flushed before each call: a graph of
-    (write a 128 MB buffer, call) pairs, less a graph of the writes alone."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    both = device_time_ms(lambda: (flush.zero_(), fn()), n)
-    alone = device_time_ms(flush.zero_, n)
-    return both - alone
 
 
 def times_ms(fn, call_runs=30):
@@ -462,7 +421,6 @@ def dtu_eval_config():
 
 def phase_path():
     from diner_tpu_torch.data.synthetic import make_sphere_scene
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train.diner import create_model, make_eval_step
     H, W = 512, 640
     cfg = dtu_eval_config()
@@ -476,28 +434,27 @@ def phase_path():
     step = make_eval_step(model, cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    composite_cuda.launches = gather_cuda.launches = 0
+    reset_counts()
     t1 = time.perf_counter()
     rgb, depth = step(batch, generator=gen)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
-    launches_first = (composite_cuda.launches, gather_cuda.launches)
-    check(launches_first == (n_chunks, 6 * n_chunks),
-          f"first render launched kernels A and C {launches_first} times, "
-          f"expected ({n_chunks}, {6 * n_chunks})")
+    launches_first = read_counts()
+    check(launches_first == (n_chunks, 0, 6 * n_chunks, 0),
+          f"first render launched kernels A, B, C and the DCN backward "
+          f"{launches_first} times, expected ({n_chunks}, 0, {6 * n_chunks}"
+          f", 0)")
 
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = 0
+    reset_counts()
     gen.manual_seed(1)  # path_pairs renders with the same noise
     t2 = time.perf_counter()
     rgb, depth = step(batch, generator=gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t2
-    launches = (composite_cuda.launches, composite_cuda.bwd_launches,
-                gather_cuda.launches)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 6 * n_chunks),
+    check(launches == (n_chunks, 0, 6 * n_chunks, 0),
           f"warm render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {6 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -506,7 +463,7 @@ def phase_path():
          chunks=n_chunks, launches=launches[0], launches_bwd=launches[1],
          launches_row_gather=launches[2],
          launches_first_render=launches_first[0],
-         launches_row_gather_first_render=launches_first[1],
+         launches_row_gather_first_render=launches_first[2],
          model_init_s=t_model, first_image_s=t_first,
          time_to_first_image_s=t_model + t_first, warm_s_per_image=t_warm,
          peak_mem_bytes=peak, share_depth_gt0=hit,
@@ -533,7 +490,6 @@ def phase_path_pairs(ev):
     encode, as ``scripts/eval_render_bench.py``'s pair-table arm opts in,
     with the noise of the eval render's warm run: rgb and depth must equal
     it bit for bit."""
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.renderer import render_rays_chunked
     from diner_tpu_torch.train.diner import (SRC_KEYS, batch_to_device,
                                              target_rays)
@@ -555,17 +511,15 @@ def phase_path_pairs(ev):
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = 0
+    reset_counts()
     gen.manual_seed(1)
     t2 = time.perf_counter()
     rgb, depth = render(gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t2
-    launches = (composite_cuda.launches, composite_cuda.bwd_launches,
-                gather_cuda.launches)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 4 * n_chunks),
+    check(launches == (n_chunks, 0, 4 * n_chunks, 0),
           f"pair-table render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {4 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -587,7 +541,6 @@ def phase_path_pruned(ev):
     (``eval_render_bench.py``'s arm ``(4096, pairs=False, pruned=True)``)
     on the eval path's model; the warm render takes the eval render's
     noise, so their difference is the sampler's."""
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train.diner import make_eval_step
     model, batch = ev["model"], ev["batch"]
     cfg = dataclasses.replace(ev["cfg"], renderer=dataclasses.replace(
@@ -601,17 +554,15 @@ def phase_path_pruned(ev):
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = 0
+    reset_counts()
     gen.manual_seed(1)
     t2 = time.perf_counter()
     rgb, depth = step(batch, generator=gen)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t2
-    launches = (composite_cuda.launches, composite_cuda.bwd_launches,
-                gather_cuda.launches)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 7 * n_chunks),
+    check(launches == (n_chunks, 0, 7 * n_chunks, 0),
           f"pruned render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {7 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -655,7 +606,8 @@ def profile_once(phase, fn):
     port = {name: {"device_ms": sum(getattr(e, attr) for e in kernels
                                     if name in e.key) / 1e3,
                    "launches": sum(e.count for e in kernels if name in e.key)}
-            for name in ("composite_fwd", "composite_bwd", "row_gather")}
+            for name in ("composite_fwd", "composite_bwd", "row_gather",
+                         "dcn_sample_bwd")}
     emit(phase, wall_ms=wall * 1e3, kernel_ms=busy_ms,
          idle_share=1 - busy_ms / (wall * 1e3),
          device_kernels=sum(e.count for e in kernels), port_kernels=port,
@@ -827,7 +779,6 @@ def phase_train_path(pruned=False):
     with the one-stage or the pruned sampler."""
     from diner_tpu_torch.data.synthetic import make_sphere_scene
     from diner_tpu_torch.losses import init_vgg19
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train.diner import (batch_to_device, create_model,
                                              make_train_step)
     cfg = dtu_train_config(pruned)
@@ -863,30 +814,26 @@ def phase_train_path(pruned=False):
           f"{stats_moved} of {len(stats0)} BN statistics moved")
     step(b, generator=gen)  # second warm-up step
 
-    def counts():
-        return (composite_cuda.launches, composite_cuda.bwd_launches,
-                gather_cuda.launches)
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = 0
+    reset_counts()
     times, losses, per_step, nonzero_per_step = [], [], [], []
     for _ in range(5):
-        before = counts()
+        before = read_counts()
         t2 = time.perf_counter()
         metrics = step(b, generator=gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t2)
-        per_step.append(tuple(a - c for a, c in zip(counts(), before)))
+        per_step.append(tuple(a - c for a, c in
+                              zip(read_counts(), before)))
         losses.append({k: float(v) for k, v in metrics.items()})
         nonzero_per_step.append(sum(bool((g != 0).any())
                                     for g in grads_of(model).values()))
-    launches = counts()
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(c == (1, 1, n_gathers) for c in per_step),
+    check(all(c == (1, 1, n_gathers, 0) for c in per_step),
           f"kernel A, B and C launches per step: {per_step}, expected "
-          f"(1, 1, {n_gathers})")
+          f"(1, 1, {n_gathers}, 0)")
     check(all(np.isfinite(v) for m in losses for v in m.values()),
           f"non-finite loss: {losses}")
     check(sorted(losses[0]) == ["antibias", "rgb_fine", "total", "vgg_fine"],
@@ -1061,7 +1008,6 @@ def phase_train_small_reference(pruned=False):
     from diner_tpu_torch.losses import init_vgg19
     from diner_tpu_torch.models.pixelnerf import PixelNeRFConfig
     from diner_tpu_torch.nn.spatial_encoder import SpatialEncoderConfig
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.renderer import RendererConfig, draw_noise
     from diner_tpu_torch.train.diner import (DinerConfig, batch_to_device,
                                              compute_losses, create_model,
@@ -1084,18 +1030,16 @@ def phase_train_small_reference(pruned=False):
     res = {}
     for where, dev in (("cpu", "cpu"), ("card", "cuda")):
         m = copy.deepcopy(cpu_model).to(dev)
-        composite_cuda.launches = composite_cuda.bwd_launches = 0
-        gather_cuda.launches = 0
+        reset_counts()
         total, _ = compute_losses(
             m, cfg, batch_to_device(batch, dev),
             copy.deepcopy(cpu_vgg).to(dev), pix_idcs=pix.to(dev),
             noise=tuple(t.to(dev) for t in noise))
         total.backward()
         res[where] = (total.item(), grads_of(m),
-                      (composite_cuda.launches, composite_cuda.bwd_launches,
-                       gather_cuda.launches))
-    expected = (1, 1, 7 if pruned else 6)
-    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0),
+                      read_counts())
+    expected = (1, 1, 7 if pruned else 6, 0)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0),
           f"card step launches {res['card'][2]}, expected {expected}; "
           f"CPU step {res['cpu'][2]}")
     loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -1191,7 +1135,6 @@ def phase_train_loop():
     import sys
 
     from diner_tpu_torch.losses import init_vgg19
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train import checkpoint as ckpt_lib
     from diner_tpu_torch.train import loop
     from diner_tpu_torch.train.config import load_train_config
@@ -1223,20 +1166,16 @@ def phase_train_loop():
                                                       "step_00000004"),
           f"CLI checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
 
-    def counts():
-        return (composite_cuda.launches, composite_cuda.bwd_launches,
-                gather_cuda.launches)
-
     # per call of the train step and of the eval step: (steps taken
     # before, launches of A, B and C, seconds to the end of its kernels)
     calls = {"train": [], "eval": []}
 
     def record(kind, taken, fn, *args, **kwargs):
-        before, t = counts(), time.perf_counter()
+        before, t = read_counts(), time.perf_counter()
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         calls[kind].append((taken, tuple(x - y for x, y in
-                                         zip(counts(), before)),
+                                         zip(read_counts(), before)),
                             time.perf_counter() - t))
         return out
 
@@ -1268,8 +1207,7 @@ def phase_train_loop():
     loop.make_eval_step = spied_make_eval
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = 0
+    reset_counts()
     try:
         trainer = loop.Trainer(run_cfg, device="cuda")
         t1 = time.perf_counter()
@@ -1281,7 +1219,7 @@ def phase_train_loop():
         t_fit = time.perf_counter() - t1
     finally:
         TrainStep.__call__, loop.make_eval_step = train_call, make_eval
-    launches = counts()
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     total_mem = torch.cuda.get_device_properties(0).total_memory
     mem_limit = int(MEMORY_SHARE_LIMIT * total_mem)
@@ -1289,15 +1227,15 @@ def phase_train_loop():
     check(ts.step == 6, f"resumed fit ended at step {ts.step}, expected 6")
     check([c[0] for c in calls["train"]] == [4, 5],
           f"resumed train steps began at {[c[0] for c in calls['train']]}")
-    check(all(c[1] == (1, 1, 6) for c in calls["train"]),
-          f"kernel A, B, C launches per train step "
-          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6)")
+    check(all(c[1] == (1, 1, 6, 0) for c in calls["train"]),
+          f"kernel A, B, C and DCN backward launches per train step "
+          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6, 0)")
     n_sweep = TRAIN_LOOP_SWEEP["nframes"] * TRAIN_LOOP_SWEEP["n_cam_sweeps"]
     check(len(calls["eval"]) == 2 + n_sweep and all(
-        c[1] == (n_chunks, 0, 6 * n_chunks) for c in calls["eval"]),
+        c[1] == (n_chunks, 0, 6 * n_chunks, 0) for c in calls["eval"]),
         f"launches per validation and sweep image "
         f"{[c[1] for c in calls['eval']]}, expected 2 + {n_sweep} times "
-        f"({n_chunks}, 0, {6 * n_chunks})")
+        f"({n_chunks}, 0, {6 * n_chunks}, 0)")
 
     names = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
     check(names == ["step_00000003", "step_00000004", "step_00000006"],
@@ -1523,7 +1461,6 @@ def phase_predict(smi, build_s):
 
     from diner_tpu_torch import evaluate, predict
     from diner_tpu_torch.evaluation.suite import compare_evaluations
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
     from diner_tpu_torch.train import diner
     from diner_tpu_torch.train.config import load_train_config
 
@@ -1540,10 +1477,6 @@ def phase_predict(smi, build_s):
     weights = lightning_checkpoint(dcfg, batch, ckpt)
     n_chunks = -(-H * W // dcfg.renderer.ray_chunk)
 
-    def counts():
-        return (composite_cuda.launches, composite_cuda.bwd_launches,
-                gather_cuda.launches)
-
     make_eval = diner.make_eval_step
     results = {}
     for name, extra in (("nsamples64", []), ("nsamples32",
@@ -1555,10 +1488,11 @@ def phase_predict(smi, build_s):
             step = make_eval(model, cfg, *args, **kwargs)
 
             def timed(*a, **k):
-                before = counts()
+                before = read_counts()
                 out = step(*a, **k)
                 torch.cuda.synchronize()
-                calls.append((tuple(x - y for x, y in zip(counts(), before)),
+                calls.append((tuple(x - y for x, y in
+                                    zip(read_counts(), before)),
                               time.perf_counter()))
                 return out
             return timed
@@ -1567,8 +1501,7 @@ def phase_predict(smi, build_s):
         diner.make_eval_step = spied_make_eval
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        composite_cuda.launches = composite_cuda.bwd_launches = 0
-        gather_cuda.launches = 0
+        reset_counts()
         try:
             t0 = time.perf_counter()
             scores = predict.main(["--config", str(cfg_path), "--ckpt",
@@ -1578,7 +1511,7 @@ def phase_predict(smi, build_s):
             t_cli = time.perf_counter() - t0
         finally:
             diner.make_eval_step = make_eval
-        launches = counts()
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
         model, cfg = models[0]
         loaded = model.state_dict()
@@ -1593,9 +1526,9 @@ def phase_predict(smi, build_s):
         check(all(np.isfinite(v) for v in scores.values())
               and "lpips_proxy" in scores, f"{name}: scores {scores}")
         check(len(calls) == PREDICT_N and all(
-            c[0] == (n_chunks, 0, 6 * n_chunks) for c in calls),
+            c[0] == (n_chunks, 0, 6 * n_chunks, 0) for c in calls),
             f"{name}: launches per image {[c[0] for c in calls]}, expected "
-            f"({n_chunks}, 0, {6 * n_chunks})")
+            f"({n_chunks}, 0, {6 * n_chunks}, 0)")
         ends = [t0] + [c[1] for c in calls]
         warm = [b - a for a, b in zip(ends[1:], ends[2:])]
         results[name] = dict(
@@ -1921,6 +1854,144 @@ def phase_kernel_gather():
     return rows
 
 
+# the DCN sampler backward's tolerance against its plain version, relative
+# to each output's largest magnitude, in either image dtype: d_img is
+# compared as the f32 canvas before its cast (``f32_d_img``), which f32
+# atomics sum in another order (a few f32 roundings); leaving a bf16
+# image's weights unrounded would move it by ~2^-9; d_x, d_y and d_scale
+# are f32 sums
+DCN_BWD_RTOL = 1e-5
+# the stage-3 tap of the 512×640 training step: 4 views, FeatureNet's DCN
+# inputs are 4 × base_channels = 32 wide
+DCN_TAP = dict(N=4, H=512, W=640, C=32)
+# DCN layers of TransMVSNet's FeatureNet (3 heads of 3) × taps of a 3×3
+DCN_BWD_PER_STEP = 3 * 3 * 9
+
+
+def dcn_case(N, H, W, C, P, dtype, with_scale, seed, edges):
+    """(img, x, y, scale, g) on the card. ``edges``: positions uniform in
+    [-2, W + 1] × [-2, H + 1] (outside, on the borders) with exact integers
+    at every 7th point, as ``tests/test_mvs.py``'s custom-VJP test; else a
+    DCN tap's: the pixel grid plus N(0, 1.5) offsets, the mask a sigmoid."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    img = rnd(N, H, W, C).to(dtype)
+    if edges:
+        x = torch.rand((N, P), generator=g, device="cuda") * (W + 3) - 2
+        y = torch.rand((N, P), generator=g, device="cuda") * (H + 3) - 2
+        x[:, ::7] = torch.floor(x[:, ::7])
+        y[:, ::7] = torch.floor(y[:, ::7])
+    else:
+        gy, gx = torch.meshgrid(torch.arange(H, device="cuda"),
+                                torch.arange(W, device="cuda"), indexing="ij")
+        x = (gx.reshape(1, -1) + 1.5 * rnd(N, P)).contiguous()
+        y = (gy.reshape(1, -1) + 1.5 * rnd(N, P)).contiguous()
+    scale = torch.sigmoid(rnd(N, P)) if with_scale else None
+    return img, x, y, scale, rnd(N, P, C).to(dtype)
+
+
+def dcn_bwd_errors(got, ref):
+    """Each output's max |got − ref| over its max |ref| (the checked
+    errors; ``max_abs_err`` is the largest |got − ref| of any output)."""
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(got, ref) if b is not None]
+
+
+def dcn_bwd_bytes(img, x, y, scale, g):
+    """The backward's bytes: g, each distinct image row a valid corner
+    touches and x, y (and scale) read once; d_img and d_x, d_y (and
+    d_scale) written once."""
+    from diner_tpu_torch.ops.dcn_cuda import corner_meta
+    N, H, W, C = img.shape
+    es = img.element_size()
+    corners, _ = corner_meta(img.shape, x, y, scale)
+    rows = torch.unique(torch.cat([c[0][c[2]] for c in corners]))
+    vectors = (3 if scale is not None else 2) * 2 * x.numel() * 4
+    return (g.numel() * es + rows.numel() * C * es + img.numel() * es
+            + vectors), int(rows.numel())
+
+
+def phase_kernel_dcn_bwd():
+    """The DCN sampler's backward kernel against its plain version on the
+    card, all four outputs: edge positions (outside, on the borders, exact
+    integers) at odd and even W and C = 5 and 32, with and without scale,
+    f32 and bf16; then the stage-3 training tap (``DCN_TAP``) in f32 and
+    bf16, timed beside the plain version and autograd of the corner
+    gathers (``DCN_CUSTOM_VJP = False``), with the bytes bound."""
+    from diner_tpu_torch.mvs import dcn
+    from diner_tpu_torch.ops import dcn_cuda
+    rows = []
+    cases = [dict(N=2, H=7, W=W, C=C, P=1001, dtype=dt, with_scale=ws,
+                  edges=True)
+             for W in (8, 9) for C in (5, 32)
+             for dt in (torch.float32, torch.bfloat16) for ws in (True, False)]
+    cases += [dict(**DCN_TAP, P=DCN_TAP["H"] * DCN_TAP["W"], dtype=dt,
+                   with_scale=True, edges=False)
+              for dt in (torch.float32, torch.bfloat16)]
+    for i, case in enumerate(cases):
+        img, x, y, scale, g = dcn_case(seed=20 + i, **{
+            k: case[k] for k in ("N", "H", "W", "C", "P", "dtype",
+                                 "with_scale", "edges")})
+        got = dcn_cuda.bilinear_sample_pix_bwd_kernel(img, x, y, scale, g,
+                                                      f32_d_img=True)
+        torch.cuda.synchronize()
+        ref = dcn_cuda.bilinear_sample_pix_bwd_plain(img, x, y, scale, g,
+                                                     f32_d_img=True)
+        errs = dcn_bwd_errors(got, ref)
+        abs_err = max_err(got, ref)
+        ok = all(e <= DCN_BWD_RTOL for e in errs)
+        row = dict(case="tap_stage3" if not case["edges"] else "edges",
+                   **{k: v for k, v in case.items() if k != "dtype"},
+                   dtype=str(case["dtype"]), err_d_img_f32=errs[0],
+                   err_d_xy_scale=errs[1:], max_abs_err=abs_err,
+                   rtol=DCN_BWD_RTOL)
+        del got, ref
+        if not case["edges"]:
+            n_bytes, distinct = dcn_bwd_bytes(img, x, y, scale, g)
+            ins = [t.requires_grad_() for t in (img, x, y, scale)]
+
+            def autograd_bwd(flag):
+                def fwd_bwd():
+                    dcn.DCN_CUSTOM_VJP = flag
+                    out = dcn.bilinear_sample_pix(*ins)
+                    return torch.autograd.grad(out, ins, g)
+                return fwd_bwd
+
+            def fwd():
+                with torch.no_grad():
+                    return dcn.bilinear_sample_pix(img, x, y, scale)
+            try:
+                fwd_ms = device_time_ms(fwd)
+                function_ms = device_time_ms(autograd_bwd(True))
+                autograd_ms = device_time_ms(autograd_bwd(False))
+            finally:
+                dcn.DCN_CUSTOM_VJP = True
+            for t in ins:
+                t.requires_grad_(False)
+            row.update(
+                **times_ms(lambda: dcn_cuda.bilinear_sample_pix_bwd_kernel(
+                    img, x, y, scale, g)),
+                plain_ms=device_time_ms(
+                    lambda: dcn_cuda.bilinear_sample_pix_bwd_plain(
+                        img, x, y, scale, g)),
+                library_ms=None, forward_ms=fwd_ms,
+                function_fwd_bwd_ms=function_ms,
+                autograd_fwd_bwd_ms=autograd_ms,
+                autograd_bwd_ms=autograd_ms - fwd_ms,
+                distinct_rows=distinct, bytes=n_bytes,
+                bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+        emit("kernel_dcn_bwd", name="dcn_sample_bwd", **row)
+        check(ok, f"DCN sampler backward kernel vs plain {row}")
+        rows.append(row)
+        del img, x, y, scale, g
+        torch.cuda.empty_cache()
+    return rows
+
+
 def capture_gathers(fn):
     """Run ``fn`` and return the (table, idx) of every row gather it made
     through the grid-sample and sampler modules, in call order."""
@@ -1993,6 +2064,8 @@ MVS_WRITE_HW = (512, 640)  # MVSDTUDataset's crop: the maps DINER reads
 # DINER renders from them
 MVS_SOURCE_CAMS = (30, 10, 6, 35)
 MVS_TARGET_CAM = 24
+# fixture processes, each rendering every MVS_FIXTURE_JOBS-th camera
+MVS_FIXTURE_JOBS = 6
 MVS_TEST_HW = (864, 1152)  # scripts/mvs_test.py's --max_h / --max_w
 MVS_TEST_VIEWS = 5         # and its --num_view
 # the small card-vs-CPU forward; TransMVSNet needs H and W divisible by 32
@@ -2022,11 +2095,13 @@ def mvs_row_gathers_per_map(cfg, views):
     return 3 * 3 * 9 * 4 + 4 * chunks * (views - 1)
 
 
-def seeded_transmvsnet(seed):
+def seeded_transmvsnet(seed, prob_gain=MVS_PROB_GAIN, offset_std=0.2):
     """The default TransMVSNet (eval mode, on the CPU) drawn from
     ``seed``: the module init, then BN statistics and affines, the DCN
-    offset/mask convolutions (offsets of a few pixels, masks away from 0.5)
-    and the cost regularisers' last convolutions × ``MVS_PROB_GAIN``."""
+    offset/mask convolutions (weights N(0, ``offset_std``): at 0.2
+    offsets of a few pixels, masks away from 0.5) and the cost
+    regularisers' last convolutions × ``prob_gain``."""
+    from diner_tpu_torch.mvs.blocks import BatchNorm
     from diner_tpu_torch.mvs.model import TransMVSNet, TransMVSNetConfig
     torch.manual_seed(seed)
     model = TransMVSNet(TransMVSNetConfig())
@@ -2038,16 +2113,17 @@ def seeded_transmvsnet(seed):
 
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            if isinstance(m, (torch.nn.modules.batchnorm._BatchNorm,
+                              BatchNorm)):
                 draw(m.running_mean, 0.1)
                 draw(m.running_var, 1.0, 0.5, uniform=True)
                 draw(m.weight, 0.1, 1.0)
                 draw(m.bias, 0.1)
             elif name.endswith("conv_offset_mask"):
-                draw(m.weight, 0.2)
+                draw(m.weight, offset_std)
                 draw(m.bias, 0.2)
             elif name.endswith(".prob"):
-                m.weight.mul_(MVS_PROB_GAIN)
+                m.weight.mul_(prob_gain)
     return model.eval()
 
 
@@ -2089,15 +2165,16 @@ def spy_run_model(records):
 
 
 def reset_counts():
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    from diner_tpu_torch.ops import composite_cuda, dcn_cuda, gather_cuda
     composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = 0
+    gather_cuda.launches = dcn_cuda.launches = 0
 
 
 def read_counts():
-    from diner_tpu_torch.ops import composite_cuda, gather_cuda
+    """Launches of kernels A, B, C and the DCN sampler's backward."""
+    from diner_tpu_torch.ops import composite_cuda, dcn_cuda, gather_cuda
     return (composite_cuda.launches, composite_cuda.bwd_launches,
-            gather_cuda.launches)
+            gather_cuda.launches, dcn_cuda.launches)
 
 
 def map_times(t0, records):
@@ -2111,26 +2188,42 @@ def map_times(t0, records):
                 forward_s=[r["forward_s"] for r in records])
 
 
+def mvs_fixture_cams():
+    """The cameras the MVS phases read: the training set's quad grid (all
+    of it: the shuffled steps read 31 of its 34 in the first 16 samples)
+    and DINER's target."""
+    from diner_tpu_torch.mvs.datasets import quad_grid_ids
+    targets, srcs = quad_grid_ids(train=True)
+    return sorted(set(targets) | {c for s in srcs for c in s}
+                  | set(MVS_SOURCE_CAMS) | {MVS_TARGET_CAM})
+
+
 def phase_mvs_fixture():
     """``python -m diner_tpu_torch.data.dtu_fixture`` writes one scan (the
-    7 lights as links to one render) of the cameras the MVS phases read:
-    49 cam files, 1200×1600 renders and ground-truth depths."""
+    7 lights as links to one render) of the cameras the MVS phases read
+    (``mvs_fixture_cams``): 49 cam files, 1200×1600 renders and
+    ground-truth depths, in ``MVS_FIXTURE_JOBS`` processes that each render
+    a share of the cameras."""
     shutil.rmtree(MVS_DIR, ignore_errors=True)
-    cams = sorted(MVS_SOURCE_CAMS + (MVS_TARGET_CAM,))
+    cams = mvs_fixture_cams()
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "diner_tpu_torch.data.dtu_fixture",
-         str(MVS_FIXTURE), "--cams", ",".join(map(str, cams))], cwd=ROOT,
-        capture_output=True, text=True, timeout=900)
+         str(MVS_FIXTURE), "--cams", ",".join(map(str, part))], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for part in (cams[j::MVS_FIXTURE_JOBS]
+                     for j in range(MVS_FIXTURE_JOBS))]
+    for proc in procs:
+        _, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"dtu_fixture exited {proc.returncode}: "
+              f"{err[-2000:]}")
     seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"dtu_fixture exited {proc.returncode}: "
-          f"{proc.stderr[-2000:]}")
     n_cams = len(list((MVS_FIXTURE / "Cameras/train").glob("*_cam.txt")))
     n_rect = len(list((MVS_FIXTURE / "Rectified/scan1_train").glob(
         "rect_*_r5000.png")))
     n_pfm = len(list((MVS_FIXTURE / "Depths/scan1").glob("depth_map_*.pfm")))
-    emit("mvs_fixture", seconds=seconds, cams=cams, cam_files=n_cams,
-         renders=n_rect, depth_maps=n_pfm)
+    emit("mvs_fixture", seconds=seconds, cams=cams, processes=MVS_FIXTURE_JOBS,
+         cam_files=n_cams, renders=n_rect, depth_maps=n_pfm)
     check(n_cams == 49 and n_rect == 7 * len(cams) and n_pfm == len(cams),
           f"fixture: {n_cams} cam files, {n_rect} renders, {n_pfm} depths")
 
@@ -2211,10 +2304,10 @@ def phase_mvs_write_prediction(smi):
          loaded_bit_for_bit=same, written=len(written), depth_maps=maps)
     check(same, "the loaded TransMVSNet weights are not the checkpoint's")
     check(len(written) == 4 and len(records) == 4, f"{len(written)} maps")
-    check(all(r["launches"] == (0, 0, per_map) for r in records)
-          and launches == (0, 0, 4 * per_map),
+    check(all(r["launches"] == (0, 0, per_map, 0) for r in records)
+          and launches == (0, 0, 4 * per_map, 0),
           f"launches per map {[r['launches'] for r in records]}, expected "
-          f"(0, 0, {per_map})")
+          f"(0, 0, {per_map}, 0)")
     lsb = DEPTH_PNG_SCALE * predict.DTU_DEPTH_UNSCALE
     for m in maps:
         check(m["shape"] == list(MVS_WRITE_HW) and m["finite"]
@@ -2419,9 +2512,9 @@ def phase_mvs_test(smi):
             ply_properties=names, ply_colors=colors is not None,
             points=res["scan1"]["points"])
         check(len(records) == len(cams) and all(
-            r["launches"] == (0, 0, per_map) for r in records),
+            r["launches"] == (0, 0, per_map, 0) for r in records),
             f"{method}: launches per map {runs[method]['launches_per_map']}, "
-            f"expected (0, 0, {per_map})")
+            f"expected (0, 0, {per_map}, 0)")
         check(len(pfms) == 2 * len(cams) and runs[method]["pfms_finite"]
               and runs[method]["pfm_shapes"] == [MVS_TEST_HW],
               f"{method}: PFMs {len(pfms)}, shapes "
@@ -2523,9 +2616,9 @@ def phase_mvs_pipeline(wp):
     check(decoded_equal, "DTUDataset's source depths are not the PNGs")
     check(model_err <= 1.001 * DEPTH_PNG_SCALE * DTU_DEPTH_UNSCALE,
           f"source depths {model_err} from the model's maps")
-    check(launches == (n_chunks, 0, 6 * n_chunks),
-          f"DINER render launched kernels A, B and C {launches} times, "
-          f"expected ({n_chunks}, 0, {6 * n_chunks})")
+    check(launches == (n_chunks, 0, 6 * n_chunks, 0),
+          f"DINER render launched kernels A, B, C and the DCN backward "
+          f"{launches} times, expected ({n_chunks}, 0, {6 * n_chunks}, 0)")
     check_image(rgb, depth, 512, 640)
     del model, step
     torch.cuda.empty_cache()
@@ -2592,20 +2685,415 @@ def phase_mvs_small_reference():
     torch.cuda.empty_cache()
 
 
+MVS_TRAIN_DIR = MVS_DIR / "train"
+MVS_TRAIN_STEPS = 10     # the f32 and bf16 runs
+MVS_TRAIN_AUTOGRAD_STEPS = 3  # DCN_CUSTOM_VJP = False
+MVS_TRAIN_RESUME_STEPS = 2    # the second process, after the f32 run
+MVS_TRAIN_TAG = "mvs_train_result="
+# ``python -m diner_tpu_torch.mvs ARGS`` with the DCN sampler's gradient
+# chosen by the first argument ("1": the Function, "0": autograd of the
+# gathers), the launch counts of kernels A, B, C and the DCN backward set
+# to 0 before the CLI's main and read after it, then one line: its
+# records, the counts and the peak allocation
+MVS_TRAIN_CLI = (
+    "import json, sys, torch\n"
+    "from diner_tpu_torch.mvs import dcn\n"
+    "from diner_tpu_torch.mvs.__main__ import main\n"
+    "from diner_tpu_torch.ops import composite_cuda, dcn_cuda, gather_cuda\n"
+    "dcn.DCN_CUSTOM_VJP = sys.argv[1] == '1'\n"
+    "composite_cuda.launches = composite_cuda.bwd_launches = 0\n"
+    "gather_cuda.launches = dcn_cuda.launches = 0\n"
+    "records = main(sys.argv[2:])\n"
+    "print('" + MVS_TRAIN_TAG + "' + json.dumps(dict(records=records, "
+    "launches=[composite_cuda.launches, composite_cuda.bwd_launches, "
+    "gather_cuda.launches, dcn_cuda.launches], "
+    "peak=torch.cuda.max_memory_allocated())))\n")
+
+
+def mvs_train_launches(cfg, views, custom_vjp=True):
+    """(kernel C, DCN backward) launches of one training step: the
+    forward's gathers (``mvs_row_gathers_per_map``), again for what remat
+    recomputes in the backward (FeatureNet's 324 with ``remat_feature``,
+    the sweeps' per source view), and one DCN backward per tap with the
+    Function. The gathers' own backward is ``index_add_``."""
+    per = mvs_row_gathers_per_map(cfg, views)
+    dcn_c = 3 * 3 * 9 * 4
+    if cfg.remat:
+        per += (per - dcn_c) + (dcn_c if cfg.remat_feature else 0)
+    return per, DCN_BWD_PER_STEP if custom_vjp else 0
+
+
+def run_mvs_train_cli(args, custom_vjp=True):
+    """The MVS CLI in a subprocess (``MVS_TRAIN_CLI``, its standard error
+    merged into its output) → its records, launches, peak, the seconds from
+    its start to each step's line, its wall time and output."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", MVS_TRAIN_CLI, "1" if custom_vjp else "0",
+         *map(str, args)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    step_t, lines, result = [], [], None
+    for line in proc.stdout:
+        lines.append(line.rstrip())
+        if line.startswith("epoch "):
+            step_t.append(time.perf_counter() - t0)
+        elif line.startswith(MVS_TRAIN_TAG):
+            result = json.loads(line[len(MVS_TRAIN_TAG):])
+    proc.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0 and result is not None,
+          f"MVS CLI {args} exited {proc.returncode}: "
+          + "\n".join(lines[-40:]))
+    return dict(result, step_seconds_from_start=step_t, wall_s=wall,
+                out=lines)
+
+
+def phase_mvs_train(smi):
+    """TransMVSNet training through ``python -m diner_tpu_torch.mvs --mode
+    train`` (subprocesses, ``MVS_TRAIN_CLI``) at the CLI's defaults
+    (``scripts/mvs_train.py``'s: 512×640, 4 views, base_channels 8,
+    ndepths 48/32/8, ratios 4/2/1, 192 hypotheses, batch 1) on the
+    fixture's scan: f32 for ``MVS_TRAIN_STEPS``, bf16 as long, autograd of
+    the DCN gathers for ``MVS_TRAIN_AUTOGRAD_STEPS``, ``--remat`` full and
+    selective one step each; a second process resumes the f32 run for
+    ``MVS_TRAIN_RESUME_STEPS``; ``--mode write_prediction --ckpt`` the f32
+    run's checkpoint (in this process); ``--mode profile`` (in this
+    process) and one warm step under the profiler. Checks: every loss
+    finite, no step skipped, the step counts, kernel C and the DCN
+    backward's launches per step (``mvs_train_launches``), each process's
+    peak within ``MEMORY_SHARE_LIMIT`` of the card, the resume from step
+    ``MVS_TRAIN_STEPS``, 4 finite maps, the trace file."""
+    from diner_tpu_torch.mvs import __main__ as mvs_cli
+    from diner_tpu_torch.mvs.model import TransMVSNetConfig
+    shutil.rmtree(MVS_TRAIN_DIR, ignore_errors=True)
+    base = ["--mode", "train", "--trainpath", str(MVS_FIXTURE),
+            "--trainlist", str(MVS_FIXTURE / "list.txt"), "--device", "cuda"]
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    mem_limit = int(MEMORY_SHARE_LIMIT * total_mem)
+    views = 4
+    runs = {}
+    plan = [
+        ("f32", MVS_TRAIN_STEPS, [], True, TransMVSNetConfig()),
+        ("bf16", MVS_TRAIN_STEPS, ["--dtype", "bfloat16"], True,
+         TransMVSNetConfig()),
+        ("autograd_dcn", MVS_TRAIN_AUTOGRAD_STEPS, [], False,
+         TransMVSNetConfig()),
+        ("remat_full", 1, ["--remat"], True, TransMVSNetConfig(remat=True)),
+        ("remat_selective", 1, ["--remat", "--remat-mode", "selective"], True,
+         TransMVSNetConfig(remat=True, remat_feature=False)),
+    ]
+    torch.cuda.empty_cache()
+    for name, steps, extra, custom, cfg in plan:
+        logdir = MVS_TRAIN_DIR / name
+        r = run_mvs_train_cli([*base, "--logdir", logdir, "--max-steps",
+                               steps, *extra], custom_vjp=custom)
+        recs = r["records"]
+        per_c, per_d = mvs_train_launches(cfg, views, custom)
+        s = [x["s"] for x in recs]
+        runs[name] = dict(
+            steps=len(recs), losses=[x["loss"] for x in recs],
+            depth_losses=[x["depth_loss"] for x in recs],
+            skipped=sum(x["skipped"] for x in recs), s_per_step=s,
+            s_per_step_warm=statistics.median(s[1:]) if len(s) > 1 else None,
+            time_to_first_step_s=r["step_seconds_from_start"][0],
+            wall_s=r["wall_s"], peak_mem_bytes=r["peak"],
+            launches=r["launches"],
+            expected_launches_per_step=[0, 0, per_c, per_d])
+        check(len(recs) == steps and [x["step"] for x in recs]
+              == list(range(1, steps + 1)), f"{name}: steps {recs}")
+        check(all(np.isfinite(x["loss"]) for x in recs)
+              and runs[name]["skipped"] == 0, f"{name}: {runs[name]}")
+        expected = [0, 0, per_c * steps, per_d * steps]
+        check(r["launches"] == expected,
+              f"{name}: kernel A, B, C and DCN backward launches "
+              f"{r['launches']}, expected {expected}")
+        check(r["peak"] <= mem_limit, f"{name}: peak {r['peak']} B over "
+              f"{MEMORY_SHARE_LIMIT} of {total_mem} B")
+
+    f32_dir = MVS_TRAIN_DIR / "f32"
+    r = run_mvs_train_cli([*base, "--logdir", f32_dir, "--max-steps",
+                           MVS_TRAIN_STEPS + MVS_TRAIN_RESUME_STEPS])
+    recs = r["records"]
+    runs["resume"] = dict(
+        steps=[x["step"] for x in recs], losses=[x["loss"] for x in recs],
+        s_per_step=[x["s"] for x in recs], wall_s=r["wall_s"],
+        peak_mem_bytes=r["peak"], launches=r["launches"],
+        resumed_line=next((ln for ln in r["out"]
+                           if ln.startswith("resumed from")), None))
+    check([x["step"] for x in recs] == list(range(
+        MVS_TRAIN_STEPS + 1, MVS_TRAIN_STEPS + MVS_TRAIN_RESUME_STEPS + 1))
+        and all(np.isfinite(x["loss"]) and x["skipped"] == 0 for x in recs)
+        and runs["resume"]["resumed_line"] is not None,
+        f"resume: {runs['resume']}")
+    per = runs["f32"]["expected_launches_per_step"]
+    check(r["launches"] == [n * MVS_TRAIN_RESUME_STEPS for n in per],
+          f"resume: kernel A, B, C and DCN backward launches "
+          f"{r['launches']}, expected {per} a step")
+
+    ckpt = f32_dir / "checkpoints" / \
+        f"step_{MVS_TRAIN_STEPS + MVS_TRAIN_RESUME_STEPS:08d}"
+    records = []
+    restore = spy_run_model(records)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        written = mvs_cli.main([
+            "--mode", "write_prediction", "--trainpath", str(MVS_FIXTURE),
+            "--trainlist", str(MVS_FIXTURE / "list.txt"), "--ckpt",
+            str(ckpt), "--outpath", str(MVS_TRAIN_DIR / "pred"),
+            "--device", "cuda"])
+        t_wp = time.perf_counter() - t0
+    finally:
+        restore()
+    wp_launches = read_counts()
+    maps_finite = [bool(np.isfinite(x["depth"].numpy()).all())
+                   for x in records]
+    runs["write_prediction"] = dict(
+        ckpt=str(ckpt.relative_to(ROOT)), maps=len(written), cli_s=t_wp,
+        launches=wp_launches, finite=maps_finite)
+    check(len(written) == 4 and all(maps_finite)
+          and wp_launches == (0, 0, 4 * MVS_C_PER_MAP[views], 0),
+          f"write_prediction from the trained checkpoint: "
+          f"{runs['write_prediction']}")
+
+    prof_dir = MVS_TRAIN_DIR / "profile"
+    t0 = time.perf_counter()
+    mvs_cli.main([*base[2:], "--mode", "profile", "--logdir",
+                  str(prof_dir)])
+    trace_file = prof_dir / "trace" / "trace.json"
+    runs["profile_cli"] = dict(seconds=time.perf_counter() - t0,
+                               trace_bytes=trace_file.stat().st_size
+                               if trace_file.exists() else 0)
+    check(runs["profile_cli"]["trace_bytes"] > 0, "no profiler trace")
+    emit("mvs_train", config="TransMVSNet default (base_channels 8, ndepths "
+         "48/32/8, ratios 4/2/1, 192 hypotheses), DTU fixture 512×640, 4 "
+         "views, batch 1, Adam lr 1e-3 with warmup", nvidia_smi=smi,
+         memory_limit_bytes=mem_limit, runs=runs)
+    mvs_train_profile()
+    return {"mvs_train_f32": tuple(runs["f32"]["launches"]),
+            "mvs_train_bf16": tuple(runs["bf16"]["launches"])}
+
+
+def mvs_train_profile():
+    """One warm f32 training step at the CLI's defaults under the profiler
+    (``mvs_train_profile``): the device's idle share, the top ops and each
+    port kernel's device time and launches; then 3 more steps timed
+    between CUDA events (``utils/profiling.py:time_fn``) in this process,
+    TF32 off (``mvs_train_step``)."""
+    from diner_tpu_torch.mvs.datasets import MVSDTUDataset
+    from diner_tpu_torch.mvs.train import (MVSTrainConfig, batch_to_device,
+                                           create_mvs_state,
+                                           make_mvs_train_step)
+    from diner_tpu_torch.data.loader import collate
+    ds = MVSDTUDataset(MVS_FIXTURE, MVS_FIXTURE / "list.txt", "train")
+    batch = batch_to_device(collate([ds[0]]), "cuda")
+    cfg = MVSTrainConfig()
+    state = create_mvs_state(cfg, seed=0, device="cuda")
+    step = make_mvs_train_step(state, cfg)
+    step(batch)
+    profile_once("mvs_train_profile", lambda: step(batch))
+    timed = time_fn(step, batch, warmup=0, iters=3)
+    emit("mvs_train_step", **timed)
+    check(state.step == 5, f"in-process train steps: {state.step}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
+def mvs_small_batch(H, W, V, seed):
+    """A batch of 1 at H×W with V views (cameras 0.1 apart in x), 192
+    hypotheses 2..6 and random ground truth inside them."""
+    g = torch.Generator().manual_seed(seed)
+    K = torch.tensor([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]])
+    projs, depth, mask = {}, {}, {}
+    for stage, scale in (("stage1", 4), ("stage2", 2), ("stage3", 1)):
+        pm = torch.zeros(1, V, 2, 4, 4)
+        for v in range(V):
+            pm[0, v, 0] = torch.eye(4)
+            pm[0, v, 0, 0, 3] = 0.1 * v
+            pm[0, v, 1, :3, :3] = K
+            pm[0, v, 1, :2] /= scale
+        projs[stage] = pm
+        h, w = H // scale, W // scale
+        depth[stage] = 3.0 + 2.0 * torch.rand((1, h, w), generator=g)
+        mask[stage] = (torch.rand((1, h, w), generator=g) > 0.1).float()
+    return {"imgs": torch.rand((1, V, H, W, 3), generator=g),
+            "proj_matrices": projs, "depth_values":
+            torch.linspace(2.0, 6.0, 192)[None], "depth": depth,
+            "mask": mask}
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# PixelwiseNet's max over the depth planes routes each pixel's gradient to
+# one plane, picked by rounding where two nearly tie: 2e-2 of the norm
+MVS_PWN = "DepthNet.pixel_wise_net."
+# the biases of FeatureNet's DCN layers that a train-mode BN follows: BN
+# subtracts the batch mean, so their gradient is 0 but for rounding, and
+# its error is taken over the norm of the same layer's weight gradient
+MVS_BIAS_BEFORE_BN = re.compile(r"feature\.out[123]\.[14]\.bias$")
+# the draw whose train-mode step is well conditioned at MVS_SMALL_HW:
+# probability gain 1 and DCN offsets of a fraction of a pixel. With the
+# seeded draw's gain 100 and offsets of a few pixels, a 1e-7 relative
+# change of the images moves train-mode gradients by 3-8e-2 of a norm on
+# the CPU alone, with this one by 5e-3 (lab/mvs_train_conditioning.py)
+MVS_CONDITIONED_DRAW = dict(prob_gain=1.0, offset_std=0.02)
+# card against CPU, train mode, the conditioned draw: each gradient's
+# error over its norm, PixelwiseNet's too. An H100 read 2.5e-3 (5.7e-3
+# without cuDNN); the CPU alone moves 4.9e-3 under a 1e-7 change of the
+# images and 2.2e-2 under 1e-6
+MVS_TRAIN_GRAD_RTOL = 1e-2
+
+
+def mvs_small_model(**draw):
+    """``seeded_transmvsnet(4, **draw)`` at ndepths 8/8/8 (CPU)."""
+    from diner_tpu_torch.mvs.model import TransMVSNet, TransMVSNetConfig
+    model = TransMVSNet(TransMVSNetConfig(ndepths=(8, 8, 8)))
+    model.load_state_dict(seeded_transmvsnet(4, **draw).state_dict())
+    return model
+
+
+def mvs_small_step(model, batch, device, train, eps=0.0, noise_seed=0):
+    """One forward and backward of a copy of ``model`` on ``device``, BN
+    in train mode or on its running statistics, the images times (1 +
+    ``eps``·N(0, 1)) where ``eps``: the loss, the launches, the gradients,
+    the BN running statistics after, each stage's probability volume and
+    the winning bins of stages 1 and 2 (on the host)."""
+    import copy
+
+    from diner_tpu_torch.mvs.loss import trans_mvsnet_loss
+    m = copy.deepcopy(model).to(device).train(train)
+    b = to_device(batch, device)
+    imgs = b["imgs"]
+    if eps:
+        g = torch.Generator().manual_seed(noise_seed)
+        imgs = imgs * (1 + eps * torch.randn(imgs.shape, generator=g)
+                       .to(device))
+    reset_counts()
+    out = m(imgs, b["proj_matrices"], b["depth_values"])
+    total = trans_mvsnet_loss(out, b["depth"], b["mask"], (0.5, 1.0, 2.0))[0]
+    total.backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return dict(
+        loss=float(total.detach()), launches=read_counts(),
+        grads={n: p.grad.detach().cpu() for n, p in m.named_parameters()},
+        stats={n: v.detach().cpu() for n, v in m.state_dict().items()
+               if "running" in n},
+        prob={st: out[st]["prob_volume"].detach().cpu()
+              for st in ("stage1", "stage2", "stage3")},
+        wta={st: out[st]["prob_volume"].argmax(1).cpu()
+             for st in ("stage1", "stage2")})
+
+
+def mvs_step_errors(ref, got, train):
+    """How far ``got`` is from ``ref`` (both ``mvs_small_step``'s): the
+    loss, the largest gradient error over its norm outside PixelwiseNet
+    (with its parameter; in ``train`` mode the biases before a BN over
+    their weight's), PixelwiseNet's, the BN statistics, the probabilities
+    and the winning bins that differ."""
+    errs = {}
+    for n, g in ref["grads"].items():
+        norm = (ref["grads"][n[:-len("bias")] + "weight"]
+                if train and MVS_BIAS_BEFORE_BN.search(n) else g).norm()
+        errs[n] = float((got["grads"][n] - g).norm() / norm.clamp_min(1e-30))
+    pwn = {n: e for n, e in errs.items() if n.startswith(MVS_PWN)}
+    rest = {n: e for n, e in errs.items() if n not in pwn}
+    worst = max(rest, key=rest.get)
+    return dict(
+        loss_ref=ref["loss"], loss=got["loss"],
+        loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+        grad_max_err_over_norm=rest[worst], worst_param=worst,
+        pixel_wise_net_grad_max_err_over_norm=max(pwn.values()),
+        bn_stats_max_abs_err=max(float((got["stats"][n] - v).abs().max())
+                                 for n, v in ref["stats"].items()),
+        prob_max_abs_diff={st: float((got["prob"][st] - p).abs().max())
+                           for st, p in ref["prob"].items()},
+        wta_bins_differ={st: int((got["wta"][st] != w).sum())
+                         for st, w in ref["wta"].items()})
+
+
+def phase_mvs_train_small_reference():
+    """One training step's forward and backward at ``MVS_SMALL_HW``, 3
+    views, ndepths 8/8/8 on the card (kernel C and the DCN backward
+    kernel) against the same on the CPU (their plain versions), from the
+    same seeded weights and batch, three times:
+
+    - in train mode (batch statistics, the step's own), the seeded draw
+      (``seeded_transmvsnet``): the loss within 1e-4 relative, the BN
+      running statistics within 1e-4, the winning bins of stages 1 and 2
+      (which set the next stage's hypotheses) the same; its gradients are
+      reported, not held: its large DCN offsets and prob gain make the
+      train-mode step chaotic at this size (``MVS_CONDITIONED_DRAW``);
+    - in train mode, the conditioned draw (``MVS_CONDITIONED_DRAW``): the
+      same, and every gradient within ``MVS_TRAIN_GRAD_RTOL`` of its norm,
+      PixelwiseNet's too;
+    - with the running statistics (eval-mode BN), the seeded draw: every
+      gradient within 1e-3 of its norm (PixelwiseNet's 2e-2: its max over
+      the depth planes routes each pixel's gradient to one plane, picked by
+      rounding where two nearly tie), the loss within 1e-4.
+    """
+    H, W = MVS_SMALL_HW
+    batch = mvs_small_batch(H, W, 3, seed=5)
+    seeded, conditioned = mvs_small_model(), mvs_small_model(
+        **MVS_CONDITIONED_DRAW)
+    rows = {}
+    for mode, model, train in (("train", seeded, True),
+                               ("train_conditioned", conditioned, True),
+                               ("running_stats", seeded, False)):
+        ref = mvs_small_step(model, batch, "cpu", train)
+        got = mvs_small_step(model, batch, "cuda", train)
+        rows[mode] = dict(mvs_step_errors(ref, got, train),
+                          launches_card=got["launches"],
+                          launches_cpu=ref["launches"])
+        check(got["launches"][2] > 0 and got["launches"][3] == DCN_BWD_PER_STEP
+              and ref["launches"] == (0, 0, 0, 0),
+              f"{mode}: launches card {got['launches']}, cpu "
+              f"{ref['launches']}")
+    emit("mvs_train_small_reference", hw=list(MVS_SMALL_HW), views=3,
+         ndepths=[8, 8, 8], conditioned_draw=MVS_CONDITIONED_DRAW,
+         train_grad_rtol=MVS_TRAIN_GRAD_RTOL, **rows)
+    for mode in ("train", "train_conditioned"):
+        tr = rows[mode]
+        check(not any(tr["wta_bins_differ"].values()),
+              f"{mode}: winning bins differ between card and CPU: "
+              f"{tr['wta_bins_differ']}")
+        check(tr["loss_rel_err"] <= 1e-4
+              and tr["bn_stats_max_abs_err"] <= 1e-4,
+              f"{mode}: training step card vs CPU: loss "
+              f"{tr['loss_rel_err']}, BN statistics "
+              f"{tr['bn_stats_max_abs_err']}")
+    tc, rs = rows["train_conditioned"], rows["running_stats"]
+    check(tc["grad_max_err_over_norm"] <= MVS_TRAIN_GRAD_RTOL
+          and tc["pixel_wise_net_grad_max_err_over_norm"]
+          <= MVS_TRAIN_GRAD_RTOL,
+          f"train-mode backward (conditioned draw), card vs CPU: {tc}")
+    check(rs["loss_rel_err"] <= 1e-4 and rs["grad_max_err_over_norm"] <= 1e-3
+          and rs["pixel_wise_net_grad_max_err_over_norm"] <= 2e-2,
+          f"backward with running statistics, card vs CPU: {rs}")
+    torch.cuda.empty_cache()
+
+
 def phases_mvs(smi):
     """The TransMVSNet phases in order; their files are deleted after.
-    Returns {path: (A, B, C) launches} and kernel C's MVS rows."""
+    Returns {path: (A, B, C, DCN backward) launches} and kernel C's MVS
+    rows."""
     phase_mvs_fixture()
     wp = phase_mvs_write_prediction(smi)
     gather_rows = phase_gather_mvs(wp.pop("model"))
     test_l = phase_mvs_test(smi)
     pipeline_l = phase_mvs_pipeline(wp)
     phase_mvs_small_reference()
+    train_l = phase_mvs_train(smi)
+    phase_mvs_train_small_reference()
     shutil.rmtree(MVS_DIR, ignore_errors=True)
     return ({"mvs_write_prediction": wp["launches"],
              "mvs_test": test_l["normal"],
              "mvs_test_gipuma": test_l["gipuma"],
-             "mvs_pipeline": pipeline_l}, gather_rows)
+             "mvs_pipeline": pipeline_l, **train_l}, gather_rows)
 
 
 def clean_outputs():
@@ -2628,6 +3116,7 @@ def main():
     rows = phase_kernel()
     bwd_rows = phase_kernel_bwd()
     gather_rows = phase_kernel_gather()
+    dcn_rows = phase_kernel_dcn_bwd()
     eval_l, ev = phase_path()
     pairs_l = phase_path_pairs(ev)
     pruned_l = phase_path_pruned(ev)
@@ -2672,6 +3161,8 @@ def main():
             "library_ms": library_ms,
         }
 
+    dcn_f32 = next(r for r in dcn_rows if r["case"] == "tap_stage3"
+                   and r["dtype"] == "torch.float32")
     # kernel C's row: one eval latent corner (the path's largest gather
     # by bytes, 320 of an image's 480 launches); every timed case beside it
     corner = next(r for r in gather_rows
@@ -2718,6 +3209,20 @@ def main():
                                            "distinct_rows", "ms_cold_l2",
                                            "library_ms_cold_l2") + timed}
                         for r in mvs_gather_rows]),
+        # the stage-3 training tap in f32; every case's errors beside it
+        dict(entry("dcn_sample_bwd", dcn_rows, dcn_f32,
+                   "diner_tpu/mvs/dcn.py:81", 3),
+             library_ms_note="no single PyTorch call computes this "
+             "backward (torchvision's deform_conv2d is not installed); "
+             "autograd of the corner gathers at the same tap beside it",
+             autograd_bwd_ms=dcn_f32["autograd_bwd_ms"],
+             function_fwd_bwd_ms=dcn_f32["function_fwd_bwd_ms"],
+             autograd_fwd_bwd_ms=dcn_f32["autograd_fwd_bwd_ms"],
+             launches_per_step=paths["mvs_train_f32"][3] / MVS_TRAIN_STEPS,
+             cases=[{k: r[k] for k in ("case", "dtype", "W", "C",
+                                       "with_scale", "err_d_img_f32",
+                                       "err_d_xy_scale") + timed if k in r}
+                    for r in dcn_rows]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -1,30 +1,47 @@
-"""TransMVSNet depth inference over a DTU tree, the port's counterpart of
+"""TransMVSNet training and depth inference, the port's counterpart of
 ``scripts/mvs_train.py`` (reference ``deps/TransMVSNet/train.py``).
 
 Usage (from the repository root):
 
+    python -m diner_tpu_torch.mvs --mode train --trainpath data/DTU \\
+        --trainlist lists/train.txt [--ndepths 48,32,8] [--epochs 16] \\
+        [--max-steps N] [--logdir outputs/mvs] [--ckpt CKPT] \\
+        [--dtype float32|bfloat16] [--remat [--remat-mode full|selective]] \\
+        [--debug-nans] [--device cuda|cpu]
+    python -m diner_tpu_torch.mvs --mode profile …
     python -m diner_tpu_torch.mvs --mode write_prediction --ckpt CKPT \\
         --trainpath data/DTU --trainlist lists/all.txt [--outpath DIR] \\
-        [--ndepths 48,32,8] [--depth_inter_r 4,2,1] [--numdepth 192] \\
-        [--interval_scale 1.06] [--maskoutput] [--device cuda|cpu]
-    python -m diner_tpu_torch.mvs --mode val --ckpt CKPT --trainpath … \\
-        --trainlist … [--max-steps N]
+        [--maskoutput]
+    python -m diner_tpu_torch.mvs --mode val --ckpt CKPT … [--max-steps N]
 
-``write_prediction`` writes the ``depth_map_XXXX_TransMVSNet(.png|_conf|
-_vis)`` PNGs that ``data/dtu.py:DTUDataset(depth_fname="TransMVSNet")``
-reads, under ``--outpath`` (default: the DTU root). ``val`` prints the
-depth metrics (abs error, share of pixels over 2 / 4 / 8 mm) over the set.
-``--ckpt`` is a reference TransMVSNet checkpoint (``{"model": …}`` or a
-bare state dict); without it the weights are a seeded draw. The dataset is ``dtu_yao``; the other
-datasets, ``--mode train`` / ``profile`` and ``--dtype bfloat16`` are not
-yet ported and exit with status 2. The flags of the training modes are
-accepted as the JAX script takes them. It runs on ``cuda`` unless
-``--device cpu`` is given.
+``train`` resumes from the latest checkpoint under ``--logdir/checkpoints``
+(or from ``--ckpt``) at the batch where that run stopped, takes shuffled
+batches (seed 0 plus the epoch) for ``--epochs`` epochs or until
+``--max-steps`` updates in all, prints each step's loss and seconds (after
+a sync), and checkpoints at each epoch's end and when it stops.
+``profile`` takes one step to warm up, then traces 5 steps into
+``--logdir/trace/trace.json``. ``write_prediction`` writes the
+``depth_map_XXXX_TransMVSNet(.png|_conf|_vis)`` PNGs that
+``data/dtu.py:DTUDataset(depth_fname="TransMVSNet")`` reads, under
+``--outpath`` (default: the data root); ``val`` prints the depth metrics
+(abs error, share of pixels over 2 / 4 / 8 mm) over the set.
+
+``--ckpt`` is a port checkpoint directory (``step_*``: a full resume of
+model, Adam, schedule and step count in ``train``) or a reference
+TransMVSNet checkpoint (``{"model": …}`` or a bare state dict: the weights
+only); without it every mode reads the run's latest checkpoint, and
+without one the weights are a seeded draw. ``--dataset`` is
+``dtu_yao``, ``bld`` (BlendedMVS) or ``facescape`` (``--split_dir``);
+``multiface`` is not yet ported and exits with status 2. ``--debug-nans``
+trains under ``torch.autograd.set_detect_anomaly``. It runs on ``cuda``
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
+from pathlib import Path
 
 import torch
 
@@ -36,8 +53,10 @@ def build_parser():
     ap.add_argument("--dataset", default="dtu_yao",
                     choices=["dtu_yao", "facescape", "multiface", "bld"])
     ap.add_argument("--trainpath", required=True)
-    ap.add_argument("--trainlist", default=None, help="scan list (dtu_yao)")
-    ap.add_argument("--split_dir", default=None)
+    ap.add_argument("--trainlist", default=None,
+                    help="scan list (dtu_yao / bld)")
+    ap.add_argument("--split_dir", default=None,
+                    help="facescape: DINER split directory")
     ap.add_argument("--split_config", default=None)
     ap.add_argument("--vallist", default=None)
     ap.add_argument("--ndepths", default="48,32,8")
@@ -50,16 +69,24 @@ def build_parser():
     ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--logdir", default="outputs/mvs")
     ap.add_argument("--ckpt", default=None,
-                    help="reference TransMVSNet checkpoint")
+                    help="port step_* directory or reference checkpoint")
     ap.add_argument("--outpath", default=None)
     ap.add_argument("--maskoutput", action="store_true")
     ap.add_argument("--max-steps", type=int, default=-1)
-    ap.add_argument("--debug-nans", action="store_true")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="autograd anomaly detection: error at the first "
+                         "NaN-producing op of a backward")
     ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "bfloat16"])
-    ap.add_argument("--remat", action="store_true")
+                    choices=["float32", "bfloat16"],
+                    help="activation/matmul compute dtype (params stay f32)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute FeatureNet / plane-sweep / 3-D U-Net "
+                         "activations in the backward")
     ap.add_argument("--remat-mode", default="full",
-                    choices=["full", "selective"])
+                    choices=["full", "selective"],
+                    help="with --remat: 'selective' keeps FeatureNet's "
+                         "activations and recomputes only the plane sweep "
+                         "and the U-Nets")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
@@ -73,30 +100,58 @@ def model_config(args):
         remat=args.remat, remat_feature=args.remat_mode == "full")
 
 
+def train_config(args):
+    from diner_tpu_torch.mvs.train import MVSTrainConfig
+    return MVSTrainConfig(model=model_config(args), lr=args.lr,
+                          compute_dtype=args.dtype)
+
+
+def build_dataset(args, ap):
+    """The dataset of ``--dataset`` in the mode the JAX script gives it."""
+    mode = "train" if args.mode == "train" else "val"
+    if args.dataset in ("dtu_yao", "bld") and not args.trainlist:
+        ap.error(f"--trainlist is required for {args.dataset}")
+    if args.dataset == "dtu_yao":
+        from diner_tpu_torch.mvs.datasets import MVSDTUDataset
+        return MVSDTUDataset(args.trainpath, args.trainlist, mode,
+                             nviews=args.nviews, ndepths=args.numdepth,
+                             interval_scale=args.interval_scale)
+    if args.dataset == "facescape":
+        from diner_tpu_torch.mvs.facescape_dataset import MVSFacescapeDataset
+        return MVSFacescapeDataset(
+            args.trainpath, args.mode, nviews=args.nviews,
+            ndepths=args.numdepth,
+            **({"split_dir": args.split_dir} if args.split_dir else {}))
+    from diner_tpu_torch.mvs.eval_datasets import MVSBlendedDataset
+    return MVSBlendedDataset(args.trainpath, args.trainlist, mode,
+                             nviews=args.nviews, ndepths=args.numdepth)
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for what, unported in (
-            (f"--mode {args.mode}", args.mode in ("train", "profile")),
-            (f"--dataset {args.dataset}", args.dataset != "dtu_yao"),
-            ("--dtype bfloat16", args.dtype != "float32")):
-        if unported:
-            ap.exit(2, f"{ap.prog}: {what} is not yet ported to "
-                    "diner_tpu_torch (write_prediction and val on dtu_yao, "
-                    "float32)\n")
-    if not args.trainlist:
-        ap.error("--trainlist is required for dtu_yao")
+    if args.dataset == "multiface":
+        ap.exit(2, f"{ap.prog}: --dataset multiface is not yet ported to "
+                "diner_tpu_torch (its loader needs data/multiface.py's "
+                "camera and colour helpers)\n")
 
     from diner_tpu_torch.device import resolve_device
-    from diner_tpu_torch.mvs import predict
-    from diner_tpu_torch.mvs.datasets import MVSDTUDataset
-
     device = resolve_device(args.device)
-    dataset = MVSDTUDataset(args.trainpath, args.trainlist, "val",
-                            nviews=args.nviews, ndepths=args.numdepth,
-                            interval_scale=args.interval_scale)
-    model = predict.create_model(model_config(args), args.ckpt, device)
+    dataset = build_dataset(args, ap)
+    cfg = train_config(args)
+    if args.mode in ("write_prediction", "val"):
+        return infer(args, cfg, dataset, device)
+    return train(args, cfg, dataset, device)
 
+
+def infer(args, cfg, dataset, device):
+    from diner_tpu_torch.mvs import predict
+    from diner_tpu_torch.mvs.loss import abs_depth_error, threshold_metric
+    from diner_tpu_torch.mvs.train import DTYPES
+    from diner_tpu_torch.train.checkpoint import latest_checkpoint
+    ckpt = args.ckpt or latest_checkpoint(Path(args.logdir) / "checkpoints")
+    model = predict.create_model(cfg.model, ckpt, device,
+                                 dtype=DTYPES[args.dtype])
     if args.mode == "write_prediction":
         out = predict.write_prediction(model, dataset,
                                        args.outpath or args.trainpath,
@@ -115,15 +170,94 @@ def main(argv=None):
         gt = torch.as_tensor(s["depth"]["stage3"], device=device)[None]
         mask = torch.as_tensor(s["mask"]["stage3"], device=device)[None]
         meter.update({
-            "abs_depth_error": predict.abs_depth_error(d, gt, mask),
-            "thres2mm_error": predict.threshold_metric(d, gt, mask, 2.0),
-            "thres4mm_error": predict.threshold_metric(d, gt, mask, 4.0),
-            "thres8mm_error": predict.threshold_metric(d, gt, mask, 8.0)})
+            "abs_depth_error": abs_depth_error(d, gt, mask),
+            "thres2mm_error": threshold_metric(d, gt, mask, 2.0),
+            "thres4mm_error": threshold_metric(d, gt, mask, 4.0),
+            "thres8mm_error": threshold_metric(d, gt, mask, 8.0)})
     scores = meter.mean()
     for k, v in scores.items():
         print(f"{k}: {v:.4f}")
     return scores
 
 
-if __name__ == "__main__":
-    main()
+def restore(state, args, ckpt_dir):
+    """Resume ``state`` from ``--ckpt`` (a port checkpoint in full, a
+    reference one's weights) or from the run's latest checkpoint."""
+    from diner_tpu_torch.mvs.predict import load_checkpoint
+    from diner_tpu_torch.train import checkpoint as ckpt_lib
+    path = args.ckpt or ckpt_lib.latest_checkpoint(ckpt_dir)
+    if path is None:
+        return
+    if (Path(path) / ckpt_lib.STATE_FILE).is_file():
+        ckpt_lib.restore_checkpoint(path, state)
+    else:
+        load_checkpoint(state.model, path)
+    print(f"resumed from {path} at step {state.step}", flush=True)
+
+
+def epoch_loader(dataset, batch_size, epoch, skip=0):
+    """Epoch ``epoch``'s batches in the JAX script's shuffled order (seed 0
+    plus the epoch), from batch ``skip`` on: a resumed run takes the
+    batches the interrupted one had not."""
+    from diner_tpu_torch.data.loader import DataLoader
+    order = DataLoader(dataset, batch_size, shuffle=True, seed=0)
+    order.epoch = epoch
+    rest = order._epoch_indices()[skip * batch_size:]
+    return DataLoader(dataset, batch_size, num_workers=2,
+                      sample_indices=rest.tolist())
+
+
+def train(args, cfg, dataset, device):
+    """``--mode train`` and ``--mode profile``; returns the per-step
+    records of ``train`` (step, loss, depth_loss, entropy, skipped, s)."""
+    from diner_tpu_torch.data.loader import DataLoader
+    from diner_tpu_torch.mvs.train import (batch_to_device, create_mvs_state,
+                                           make_mvs_train_step)
+    from diner_tpu_torch.train import checkpoint as ckpt_lib
+    from diner_tpu_torch.utils.profiling import sync, trace
+
+    example = next(iter(DataLoader(dataset, args.batch_size,
+                                   num_workers=0)))
+    state = create_mvs_state(cfg, seed=0, example_batch=example,
+                             device=device)
+    ckpt_dir = Path(args.logdir) / "checkpoints"
+    restore(state, args, ckpt_dir)
+    step_fn = make_mvs_train_step(state, cfg)
+
+    if args.mode == "profile":
+        batch = batch_to_device(example, device)
+        step_fn(batch)  # warm-up
+        trace_dir = str(Path(args.logdir) / "trace")
+        with trace(trace_dir):
+            for _ in range(5):
+                step_fn(batch)
+        print(f"wrote profiler trace to {trace_dir}")
+        return trace_dir
+
+    records = []
+    n_batches = -(-len(dataset) // args.batch_size)
+    start_epoch, skip = divmod(state.step, n_batches)
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        for epoch in range(start_epoch, args.epochs):
+            if 0 <= args.max_steps <= state.step:
+                break
+            for batch in epoch_loader(dataset, args.batch_size, epoch,
+                                      skip if epoch == start_epoch else 0):
+                if 0 <= args.max_steps <= state.step:
+                    break
+                t0 = time.perf_counter()
+                loss, depth_loss, entropy, skipped = step_fn(
+                    batch_to_device(batch, device))
+                sync()
+                rec = dict(step=state.step, loss=float(loss),
+                           depth_loss=float(depth_loss),
+                           entropy=float(entropy), skipped=float(skipped),
+                           s=time.perf_counter() - t0)
+                records.append(rec)
+                print(f"epoch {epoch} step {rec['step']} loss "
+                      f"{rec['loss']:.4f} depth_loss {rec['depth_loss']:.4f} "
+                      f"skipped {rec['skipped']:.0f} ({rec['s']:.3f} s/it)",
+                      flush=True)
+            ckpt_lib.save_checkpoint(ckpt_dir, state)
+    print("done")
+    return records

@@ -8,8 +8,12 @@ folded into the corner weights in f32, and its (N·H·W, C) × (C, O) product
 is summed across taps in f32. The 4 corner fetches of a tap are flat row
 gathers (kernel C on the card, ``ops/gather_cuda.py``): 36 per layer.
 
-The JAX package's hand-written VJP of the sampler (``_bilinear_sample_pix``,
-off by default there) belongs to training and is not ported.
+The sampler's gradient is the JAX package's hand-written VJP
+(``_bilinear_sample_pix``): a ``torch.autograd.Function`` that saves only
+the image, the positions and the mask, whose backward is a CUDA kernel on
+the card (``ops/dcn_cuda.py``, ``csrc/dcn_sample_bwd.cu``). Autograd of
+the corner gathers would instead keep each tap's 4 gathered row blocks for
+the backward (``DCN_CUSTOM_VJP = False``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,50 @@ import math
 import torch
 from torch import nn
 
+from diner_tpu_torch.mvs.blocks import Conv2d
+from diner_tpu_torch.ops.dcn_cuda import bilinear_sample_pix_bwd, corner_meta
 from diner_tpu_torch.ops.gather_cuda import row_gather
+
+
+def _sample(img, x, y, scale):
+    """The sampler's forward (see :func:`bilinear_sample_pix`)."""
+    N, H, W, C = img.shape
+    P = x.shape[1]
+    flat = img.reshape(N * H * W, C)
+    corners, _ = corner_meta(img.shape, x, y, scale)
+    out = None
+    for idx, w, _, _ in corners:
+        rows = row_gather(flat, idx.reshape(-1)).reshape(N, P, C)
+        term = rows * w.to(img.dtype)[..., None]
+        out = term if out is None else out + term
+    return out
+
+
+class _BilinearSamplePix(torch.autograd.Function):
+    """Forward: the 4 corner fetches through kernel C. Backward:
+    ``ops/dcn_cuda.py:bilinear_sample_pix_bwd`` (the kernel on the card,
+    the plain version on the CPU), from the saved ``img, x, y, scale``
+    alone."""
+
+    @staticmethod
+    def forward(ctx, img, x, y, scale):
+        ctx.save_for_backward(img, x, y, scale)
+        return _sample(img, x, y, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, x, y, scale = ctx.saved_tensors
+        d_img, d_x, d_y, d_s = bilinear_sample_pix_bwd(
+            img, x, y, scale, g.contiguous())
+        return (d_img, d_x.to(x.dtype), d_y.to(y.dtype),
+                None if d_s is None else d_s.to(scale.dtype))
+
+
+# The sampler's gradient: True, the hand-written backward
+# (:class:`_BilinearSamplePix`, which saves the image and the positions);
+# False, autograd of the corner gathers (the JAX package's default), which
+# saves each tap's 4 gathered (N·P, C) row blocks for the weight products.
+DCN_CUSTOM_VJP = True
 
 
 def bilinear_sample_pix(img, x, y, scale=None):
@@ -29,34 +76,13 @@ def bilinear_sample_pix(img, x, y, scale=None):
     indices above 256 are not exact in bf16). ``scale`` is an optional
     (N, P) multiplier (the DCNv2 mask) folded into each corner weight in
     f32, which is then cast to ``img.dtype`` once. Returns (N, P, C); the
-    4 corner terms are summed in corner order, as in JAX.
+    4 corner terms are summed in corner order, as in JAX. Differentiable in
+    all four inputs, by :class:`_BilinearSamplePix` or by autograd as
+    ``DCN_CUSTOM_VJP`` says.
     """
-    N, H, W, C = img.shape
-    P = x.shape[1]
-    x = x.float()
-    y = y.float()
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    wx1 = x - x0
-    wy1 = y - y0
-    flat = img.reshape(N * H * W, C)
-    base = (torch.arange(N, device=img.device) * (H * W))[:, None]
-    x0i = x0.long()
-    y0i = y0.long()
-
-    def tap(ix, iy, w):
-        valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
-        w = torch.where(valid, w, torch.zeros_like(w))
-        if scale is not None:
-            w = w * scale.float()
-        idx = base + iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
-        rows = row_gather(flat, idx.reshape(-1)).reshape(N, P, C)
-        return rows * w.to(img.dtype)[..., None]
-
-    return (tap(x0i, y0i, (1 - wx1) * (1 - wy1))
-            + tap(x0i + 1, y0i, wx1 * (1 - wy1))
-            + tap(x0i, y0i + 1, (1 - wx1) * wy1)
-            + tap(x0i + 1, y0i + 1, wx1 * wy1))
+    if DCN_CUSTOM_VJP:
+        return _BilinearSamplePix.apply(img, x, y, scale)
+    return _sample(img, x, y, scale)
 
 
 class DeformConv2d(nn.Module):
@@ -75,7 +101,7 @@ class DeformConv2d(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_channels, kernel,
                                                kernel))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.conv_offset_mask = nn.Conv2d(in_channels, 3 * K, kernel,
+        self.conv_offset_mask = Conv2d(in_channels, 3 * K, kernel,
                                           padding=kernel // 2)
         stdv = 1.0 / math.sqrt(in_channels * K)
         nn.init.uniform_(self.weight, -stdv, stdv)

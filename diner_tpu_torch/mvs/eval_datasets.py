@@ -17,7 +17,12 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from diner_tpu_torch.data.io import read_rgb, resize_bilinear, resize_nearest
+from diner_tpu_torch.data.io import (
+    read_pfm,
+    read_rgb,
+    resize_bilinear,
+    resize_nearest,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -170,10 +175,10 @@ class MVSGeneralEvalDataset:
         (general_eval.py:63-83)."""
         with open(filename) as f:
             lines = [line.rstrip() for line in f.readlines()]
-        extrinsics = np.fromstring(" ".join(lines[1:5]), dtype=np.float32,
-                                   sep=" ").reshape(4, 4)
-        intrinsics = np.fromstring(" ".join(lines[7:10]), dtype=np.float32,
-                                   sep=" ").reshape(3, 3)
+        extrinsics = np.array(" ".join(lines[1:5]).split(),
+                              np.float32).reshape(4, 4)
+        intrinsics = np.array(" ".join(lines[7:10]).split(),
+                              np.float32).reshape(3, 3)
         intrinsics[:2, :] /= 4.0
         fields = lines[11].split()
         depth_min = float(fields[0])
@@ -253,4 +258,108 @@ class MVSGeneralEvalDataset:
             "proj_matrices": _proj_pyramid(np.stack(proj_matrices)),
             "depth_values": depth_values,
             "filename": scan + "/{}/" + f"{view_ids[0]:08d}" + "{}",
+        }
+
+
+# ---------------------------------------------------------------------------
+# bld_train.py — BlendedMVS training dataset
+# ---------------------------------------------------------------------------
+
+class MVSBlendedDataset:
+    """BlendedMVS loader (bld_train.py:8-167).
+
+    Depth interval = (cam-file depth_max − depth_min) / ndepths; validity
+    mask = GT depth within [depth_min, depth_min + (ndepths−1)·interval];
+    multi-stage nearest pyramids; channels-last images.
+    """
+
+    def __init__(self, datapath, listfile, mode: str, nviews: int,
+                 ndepths: int = 192, interval_scale: float = 1.0,
+                 image_scale: float = 1.0):
+        assert mode in ("train", "val", "test")
+        self.datapath = Path(datapath)
+        self.mode = mode
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.interval_scale = interval_scale
+        self.image_scale = image_scale
+        scans = [s for s in Path(listfile).read_text().splitlines() if s]
+        self.metas = []
+        for scan in scans:
+            for ref_view, src_views in read_pair_file(
+                    self.datapath / scan / "cams" / "pair.txt"):
+                if len(src_views) < self.nviews - 1:
+                    continue
+                self.metas.append((scan, ref_view, src_views))
+
+    def __len__(self):
+        return len(self.metas)
+
+    def read_cam_file(self, filename):
+        """BlendedMVS cam txt: interval from span / ndepths (bld_train.py:53-70)."""
+        with open(filename) as f:
+            lines = [line.rstrip() for line in f.readlines()]
+        extrinsics = np.array(" ".join(lines[1:5]).split(),
+                              np.float32).reshape(4, 4)
+        intrinsics = np.array(" ".join(lines[7:10]).split(),
+                              np.float32).reshape(3, 3)
+        intrinsics[:2, :] /= 4.0
+        if self.image_scale != 1.0:
+            intrinsics[:2, :] *= self.image_scale
+        fields = lines[11].split()
+        depth_min = float(fields[0])
+        depth_max = float(fields[-1])
+        depth_interval = (depth_max - depth_min) / self.ndepths
+        return intrinsics, extrinsics, depth_min, depth_interval
+
+    def __getitem__(self, idx: int) -> Dict:
+        scan, ref_view, src_views = self.metas[idx]
+        view_ids = [ref_view] + src_views[: self.nviews - 1]
+
+        imgs, proj_matrices = [], []
+        depth_ms = mask_ms = depth_values = None
+        depth_interval = None
+        depth_name = None
+        for i, vid in enumerate(view_ids):
+            img = read_rgb(self.datapath / scan / "blended_images" /
+                           f"{vid:08d}.jpg")
+            intrinsics, extrinsics, depth_min, depth_interval = (
+                self.read_cam_file(self.datapath / scan / "cams" /
+                                   f"{vid:08d}_cam.txt"))
+            imgs.append(img)
+            pm = np.zeros((2, 4, 4), np.float32)
+            pm[0] = extrinsics
+            pm[1, :3, :3] = intrinsics
+            proj_matrices.append(pm)
+
+            if i == 0:
+                depth_name = str(self.datapath / scan /
+                                 "rendered_depth_maps" / f"{vid:08d}.pfm")
+                depth = np.asarray(read_pfm(depth_name)[0], np.float32)
+                depth_end = depth_interval * (self.ndepths - 1) + depth_min
+                mask = ((depth >= depth_min) & (depth <= depth_end)
+                        ).astype(np.float32)
+                h, w = depth.shape
+                mask_ms = {
+                    "stage1": resize_nearest(mask, h // 4, w // 4),
+                    "stage2": resize_nearest(mask, h // 2, w // 2),
+                    "stage3": mask,
+                }
+                depth_ms = {
+                    "stage1": resize_nearest(depth, h // 4, w // 4),
+                    "stage2": resize_nearest(depth, h // 2, w // 2),
+                    "stage3": depth,
+                }
+                depth_max = depth_interval * self.ndepths + depth_min
+                depth_values = np.arange(depth_min, depth_max,
+                                         depth_interval, dtype=np.float32)
+
+        return {
+            "imgs": np.stack(imgs),
+            "proj_matrices": _proj_pyramid(np.stack(proj_matrices)),
+            "depth": depth_ms,
+            "depth_values": depth_values,
+            "mask": mask_ms,
+            "depth_interval": np.float32(depth_interval),
+            "name": depth_name,
         }

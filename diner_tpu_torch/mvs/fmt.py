@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diner_tpu_torch.mvs.blocks import Conv2d, LayerNorm, Linear
 from diner_tpu_torch.utils.resize import resize_linear_2d
 
 
@@ -36,10 +37,10 @@ class AttentionLayer(nn.Module):
         super().__init__()
         self.n_heads = n_heads
         dk = d_model // n_heads
-        self.query_projection = nn.Linear(d_model, dk * n_heads)
-        self.key_projection = nn.Linear(d_model, dk * n_heads)
-        self.value_projection = nn.Linear(d_model, dk * n_heads)
-        self.out_projection = nn.Linear(dk * n_heads, d_model)
+        self.query_projection = Linear(d_model, dk * n_heads)
+        self.key_projection = Linear(d_model, dk * n_heads)
+        self.value_projection = Linear(d_model, dk * n_heads)
+        self.out_projection = Linear(dk * n_heads, d_model)
 
     def forward(self, queries, keys, values):
         N, L, _ = queries.shape
@@ -55,10 +56,10 @@ class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int):
         super().__init__()
         self.attention = AttentionLayer(d_model, n_heads)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
-        self.linear1 = nn.Linear(d_model, 2 * d_model)
-        self.linear2 = nn.Linear(2 * d_model, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
+        self.norm1 = LayerNorm(d_model, eps=1e-6)
+        self.linear1 = Linear(d_model, 2 * d_model)
+        self.linear2 = Linear(2 * d_model, d_model)
+        self.norm2 = LayerNorm(d_model, eps=1e-6)
 
     def forward(self, x, source):
         x = self.norm1(x + self.attention(x, source, source))
@@ -121,8 +122,15 @@ class PositionEncodingSuperGlue(nn.Module):
         size = torch.tensor([W, H], dtype=torch.float32, device=x.device)
         kpts = torch.stack([xs, ys], dim=-1)  # (H, W, 2)
         p = (kpts - size / 2.0) / (0.7 * size.max())
-        h = self.kenc(p.reshape(1, H * W, 2).transpose(1, 2).to(x.dtype))
-        return x + h.reshape(1, C, H, W)
+        h = self.kenc(p.reshape(1, H * W, 2).transpose(1, 2))
+        return x + h.reshape(1, C, H, W).to(x.dtype)
+
+    def train(self, mode: bool = True):
+        # the JAX package runs this MLP's BN on its running statistics,
+        # training or not (fmt.py: the encoding is called with train=False)
+        super().train(mode)
+        self.kenc.eval()
+        return self
 
 
 class FMT(nn.Module):
@@ -188,10 +196,10 @@ class FMTWithPathway(nn.Module):
         super().__init__()
         bc = base_channels
         self.FMT = FMT(d_model=4 * bc, pe_type=pe_type)
-        self.dim_reduction_1 = nn.Conv2d(4 * bc, 2 * bc, 1, bias=False)
-        self.dim_reduction_2 = nn.Conv2d(2 * bc, bc, 1, bias=False)
-        self.smooth_1 = nn.Conv2d(2 * bc, 2 * bc, 3, padding=1, bias=False)
-        self.smooth_2 = nn.Conv2d(bc, bc, 3, padding=1, bias=False)
+        self.dim_reduction_1 = Conv2d(4 * bc, 2 * bc, 1, bias=False)
+        self.dim_reduction_2 = Conv2d(2 * bc, bc, 1, bias=False)
+        self.smooth_1 = Conv2d(2 * bc, 2 * bc, 3, padding=1, bias=False)
+        self.smooth_2 = Conv2d(bc, bc, 3, padding=1, bias=False)
 
     @staticmethod
     def _upsample_add(x, y):

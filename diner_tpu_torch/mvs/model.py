@@ -24,7 +24,16 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from diner_tpu_torch.mvs.blocks import ConvBnReLU, ConvBnReLU3D, DeconvBnReLU3D
+from diner_tpu_torch.mvs.blocks import (
+    BatchNorm,
+    Conv2d,
+    Conv3d,
+    ConvBnReLU,
+    ConvBnReLU3D,
+    DeconvBnReLU3D,
+    remat,
+    set_compute_dtype,
+)
 from diner_tpu_torch.mvs.dcn import DeformConv2d
 from diner_tpu_torch.mvs.fmt import FMTWithPathway
 from diner_tpu_torch.mvs.homography import homo_warping
@@ -46,8 +55,9 @@ class TransMVSNetConfig:
     # depth planes per plane-sweep step: one (B, chunk, H, W, C) warped
     # group is live at a time, which bounds peak memory
     sweep_chunk: int = 8
-    # the JAX package's rematerialisation switches: training options,
-    # kept so configs carry across; inference ignores them
+    # rematerialise in the backward (training): with ``remat``, each view's
+    # plane sweep and each CostRegNet, and FeatureNet too with
+    # ``remat_feature`` (False: "selective", FeatureNet's activations kept)
     remat: bool = False
     remat_feature: bool = True
 
@@ -61,8 +71,8 @@ def _dcn_head(bc: int, out: int, first_kernel: int):
     Sequential (DCNs at indices 1, 4, 7; BNs at 2, 5)."""
     return nn.Sequential(
         ConvBnReLU(4 * bc, 4 * bc, first_kernel),
-        DeformConv2d(4 * bc, 4 * bc), nn.BatchNorm2d(4 * bc), nn.ReLU(),
-        DeformConv2d(4 * bc, 4 * bc), nn.BatchNorm2d(4 * bc), nn.ReLU(),
+        DeformConv2d(4 * bc, 4 * bc), BatchNorm(4 * bc), nn.ReLU(),
+        DeformConv2d(4 * bc, 4 * bc), BatchNorm(4 * bc), nn.ReLU(),
         DeformConv2d(4 * bc, out))
 
 
@@ -81,8 +91,8 @@ class FeatureNet(nn.Module):
             ConvBnReLU(2 * bc, 4 * bc, 5, stride=2, padding=2),
             ConvBnReLU(4 * bc, 4 * bc), ConvBnReLU(4 * bc, 4 * bc))
         self.out1 = _dcn_head(bc, 4 * bc, 1)
-        self.inner1 = nn.Conv2d(2 * bc, 4 * bc, 1)
-        self.inner2 = nn.Conv2d(bc, 4 * bc, 1)
+        self.inner1 = Conv2d(2 * bc, 4 * bc, 1)
+        self.inner2 = Conv2d(bc, 4 * bc, 1)
         self.out2 = _dcn_head(bc, 2 * bc, 3)
         self.out3 = _dcn_head(bc, bc, 3)
 
@@ -106,7 +116,7 @@ class PixelwiseNet(nn.Module):
         super().__init__()
         self.conv0 = ConvBnReLU3D(1, 16, 1, padding=0)
         self.conv1 = ConvBnReLU3D(16, 8, 1, padding=0)
-        self.conv2 = nn.Conv3d(8, 1, 1)
+        self.conv2 = Conv3d(8, 1, 1)
 
     def forward(self, x):
         x = self.conv2(self.conv1(self.conv0(x.unsqueeze(1))))
@@ -129,7 +139,7 @@ class CostRegNet(nn.Module):
         self.conv7 = DeconvBnReLU3D(8 * bc, 4 * bc)
         self.conv9 = DeconvBnReLU3D(4 * bc, 2 * bc)
         self.conv11 = DeconvBnReLU3D(2 * bc, bc)
-        self.prob = nn.Conv3d(bc, 1, 3, padding=1, bias=False)
+        self.prob = Conv3d(bc, 1, 3, padding=1, bias=False)
 
     def forward(self, x):
         c0 = self.conv0(x.unsqueeze(1))
@@ -179,9 +189,10 @@ def _full_proj(pm):
 class DepthNet(nn.Module):
     """One cascade stage: warped-similarity cost volume + regularisation."""
 
-    def __init__(self, sweep_chunk: int = 8):
+    def __init__(self, sweep_chunk: int = 8, remat: bool = False):
         super().__init__()
         self.sweep_chunk = sweep_chunk
+        self.remat = remat
         self.pixel_wise_net = PixelwiseNet()
 
     def _similarity(self, src_fea, ref_fea, src_proj, ref_proj, dv):
@@ -209,8 +220,10 @@ class DepthNet(nn.Module):
         similarity_sum = 0.0
         weight_sum = 1e-5
         new_weights = []
+        sweep = (lambda *a: remat(self._similarity, *a)) if self.remat \
+            else self._similarity
         for i, src in enumerate(features[1:]):
-            similarity = self._similarity(
+            similarity = sweep(
                 src.permute(0, 2, 3, 1).contiguous(), ref_fea,
                 _full_proj(proj_matrices[:, i + 1]), ref_proj, depth_values)
             if view_weights is None:
@@ -222,7 +235,9 @@ class DepthNet(nn.Module):
             weight_sum = weight_sum + w
         similarity = similarity_sum / weight_sum
 
-        prob_volume = torch.softmax(cost_regularization(similarity), dim=1)
+        cost = (remat(cost_regularization, similarity) if self.remat
+                else cost_regularization(similarity))
+        prob_volume = torch.softmax(cost, dim=1)
         out = {"depth": depth_wta(prob_volume, depth_values),
                "photometric_confidence": prob_volume.amax(dim=1),
                "prob_volume": prob_volume, "depth_values": depth_values}
@@ -232,15 +247,23 @@ class DepthNet(nn.Module):
 
 
 class TransMVSNet(nn.Module):
-    def __init__(self, cfg: TransMVSNetConfig = TransMVSNetConfig()):
+    """``dtype`` is the compute dtype of convolutions, DCNs, the FMT and
+    the U-Nets (``diner_tpu/mvs/model.py:TransMVSNet.dtype``); parameters,
+    BN statistics, pixel coordinates, homographies, DCN offsets and masks
+    and the hypothesis depths stay f32."""
+
+    def __init__(self, cfg: TransMVSNetConfig = TransMVSNetConfig(),
+                 dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.feature = FeatureNet(cfg.base_channels)
         self.FMT_with_pathway = FMTWithPathway(cfg.base_channels,
                                                pe_type=cfg.fmt_pe_type)
         self.cost_regularization = nn.ModuleList(
             CostRegNet(cfg.cr_base_chs[i]) for i in range(cfg.num_stage))
-        self.DepthNet = DepthNet(cfg.sweep_chunk)
+        self.DepthNet = DepthNet(cfg.sweep_chunk, cfg.remat)
+        set_compute_dtype(self, dtype)
 
     def forward(self, imgs, proj_matrices: Dict[str, torch.Tensor],
                 depth_values) -> Dict:
@@ -254,7 +277,8 @@ class TransMVSNet(nn.Module):
                           / depth_values.shape[1])
         # one FeatureNet call over the B·V views (model.py:337-343)
         x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2)
-        feats_all = self.feature(x)
+        feats_all = (remat(self.feature, x)
+                     if cfg.remat and cfg.remat_feature else self.feature(x))
         features = [{k: f.reshape((B, V) + f.shape[1:])[:, v]
                      for k, f in feats_all.items()} for v in range(V)]
         features = self.FMT_with_pathway(features)

@@ -1,10 +1,8 @@
-"""TransMVSNet inference: the model from a reference checkpoint, the
-depth-map writer DINER's data layer reads, and the depth metrics of
-``--mode val``.
+"""TransMVSNet inference: the model from a checkpoint and the depth-map
+writer DINER's data layer reads.
 
 Port of ``diner_tpu/mvs/train.py:106-170`` (``write_prediction``, reference
-``deps/TransMVSNet/train.py:152-208``) and of the two metrics of
-``diner_tpu/mvs/loss.py:105-118`` (reference ``utils.py:268-275``).
+``deps/TransMVSNet/train.py:152-208``).
 ``write_prediction`` writes, per sample, ``<dpath stem>_TransMVSNet.png``
 (depth ÷ 872/0.7 as a uint16 PNG of 1e-4 units), ``…_conf.png`` (the
 photometric confidence, same codec) and ``…_vis.png`` (viridis) under
@@ -30,24 +28,31 @@ DTU_DEPTH_UNSCALE = 872.0 / 0.7
 
 
 def load_checkpoint(model, path):
-    """Load a reference TransMVSNet checkpoint (the trainer's ``{"model":
-    …}`` or a bare state dict, DDP ``module.`` prefix or not) into
-    ``model`` through ``utils/convert.py:transmvsnet_reference_state_dict``.
-    The reference trainer saves tensors, numbers and dicts only, so the
-    file is read with ``weights_only=True``."""
+    """Load TransMVSNet weights into ``model``: from a port checkpoint
+    directory (``step_*``, written by ``mvs/train.py``; its model state
+    dict) or from a reference TransMVSNet checkpoint (the trainer's
+    ``{"model": …}`` or a bare state dict, DDP ``module.`` prefix or not)
+    through ``utils/convert.py:transmvsnet_reference_state_dict``. Both
+    hold tensors, numbers and dicts only, so they are read with
+    ``weights_only=True``."""
+    from diner_tpu_torch.train.checkpoint import STATE_FILE, load_state
     from diner_tpu_torch.utils.convert import transmvsnet_reference_state_dict
+    if (Path(path) / STATE_FILE).is_file():
+        model.load_state_dict(load_state(path)["model"])
+        return model
     blob = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(transmvsnet_reference_state_dict(
         blob, model.state_dict()))
     return model
 
 
-def create_model(cfg, ckpt, device):
-    """A ``TransMVSNet`` in eval mode on ``device``: the checkpoint's
-    weights, or a draw from seed 0 (with a note on stderr) without one."""
+def create_model(cfg, ckpt, device, dtype=torch.float32):
+    """A ``TransMVSNet`` computing in ``dtype``, in eval mode on
+    ``device``: the checkpoint's weights, or a draw from seed 0 (with a
+    note on stderr) without one."""
     from diner_tpu_torch.mvs.model import TransMVSNet
     torch.manual_seed(0)
-    model = TransMVSNet(cfg)
+    model = TransMVSNet(cfg, dtype=dtype)
     if ckpt:
         load_checkpoint(model, ckpt)
     else:
@@ -84,8 +89,8 @@ def write_prediction(model, dataset, outpath,
     for i in range(len(dataset)):
         s = dataset[i]
         out = run_model(model, s, device)
-        depth = out["depth"][0].cpu().numpy() / depth_scale
-        conf = out["photometric_confidence"][0].cpu().numpy()
+        depth = out["depth"][0].float().cpu().numpy() / depth_scale
+        conf = out["photometric_confidence"][0].float().cpu().numpy()
         if mask_output and s.get("mask") is not None:
             m = s["mask"]["stage3"] > 0.5
             depth = depth * m
@@ -117,21 +122,3 @@ def write_prediction(model, dataset, outpath,
         written.append(str(dst))
     return written
 
-
-def _masked_mean(x, mask):
-    return torch.sum(x * mask) / (torch.sum(mask) + 1e-6)
-
-
-def abs_depth_error(pred, gt, mask, thresh=None):
-    """AbsDepthError_metrics (deps/TransMVSNet/utils.py:268-275)."""
-    err = torch.abs(pred - gt)
-    maskf = mask.to(pred.dtype)
-    if thresh is not None:
-        maskf = maskf * (err < thresh)
-    return _masked_mean(err, maskf)
-
-
-def threshold_metric(pred, gt, mask, thresh):
-    """Thres_metrics: the share of valid pixels with error > thresh."""
-    err = torch.abs(pred - gt)
-    return _masked_mean((err > thresh).to(pred.dtype), mask.to(pred.dtype))

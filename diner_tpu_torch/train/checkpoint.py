@@ -7,7 +7,9 @@ step. The state is the whole train state of a ``TrainStep``: the model's
 parameters and BN running statistics (``state_dict``), the Adam state
 (moments and step counts) and the count of steps taken. It is written with
 ``torch.save`` to a temporary name and renamed into place, so a reader
-never sees a half-written file. Restoring puts every tensor back where
+never sees a half-written file. A train state with a learning-rate
+``scheduler`` (TransMVSNet's, ``mvs/train.py``) saves its state too.
+Restoring puts every tensor back where
 the train step keeps it (the model's device). Reading an orbax checkpoint
 written by the JAX package is not supported (orbax imports JAX).
 """
@@ -36,6 +38,9 @@ def save_checkpoint(ckpt_dir, train_step, step: Optional[int] = None,
     state = {"model": train_step.model.state_dict(),
              "optimizer": train_step.optimizer.state_dict(),
              "step": int(train_step.step)}
+    scheduler = getattr(train_step, "scheduler", None)
+    if scheduler is not None:
+        state["scheduler"] = scheduler.state_dict()
     tmp = path / f".{STATE_FILE}.{os.getpid()}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path / STATE_FILE)
@@ -71,5 +76,7 @@ def restore_checkpoint(path, train_step):
     state = load_state(path)
     train_step.model.load_state_dict(state["model"])
     train_step.optimizer.load_state_dict(state["optimizer"])
+    if "scheduler" in state:
+        train_step.scheduler.load_state_dict(state["scheduler"])
     train_step.step = int(state["step"])
     return train_step

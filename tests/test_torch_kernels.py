@@ -196,3 +196,43 @@ def test_build_plan_hashes_the_shared_header(tmp_path, monkeypatch):
     cmd = cuda_build.nvcc_command("composite_bwd", tmp_path / "x.so")
     assert cmd[cmd.index("-I") + 1] == str(pkg / "csrc")
     assert cmd[-1] == str(pkg / "csrc" / "composite_bwd.cu")
+
+
+# the DCN sampler's backward (csrc/dcn_sample_bwd.cu): outputs relative to
+# their largest magnitude, d_img as its f32 canvas before the cast, which
+# f32 atomics sum in another order
+DCN_BWD_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [8, 9])
+@pytest.mark.parametrize("C", [5, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_scale", [True, False])
+def test_dcn_sample_bwd_kernel_edges(cuda, W, C, dtype, with_scale):
+    """The kernel against bilinear_sample_pix_bwd_plain at positions
+    outside the image, on its borders and at exact integers."""
+    from diner_tpu_torch.ops import dcn_cuda
+    g = torch.Generator(device=cuda).manual_seed(W * 100 + C)
+    N, H, P = 2, 7, 1001
+    img = torch.randn((N, H, W, C), generator=g, device=cuda).to(dtype)
+    x = torch.rand((N, P), generator=g, device=cuda) * (W + 3) - 2
+    y = torch.rand((N, P), generator=g, device=cuda) * (H + 3) - 2
+    x[:, ::7] = torch.floor(x[:, ::7])
+    y[:, ::7] = torch.floor(y[:, ::7])
+    scale = (torch.rand((N, P), generator=g, device=cuda)
+             if with_scale else None)
+    gout = torch.randn((N, P, C), generator=g, device=cuda).to(dtype)
+    got = dcn_cuda.bilinear_sample_pix_bwd_kernel(img, x, y, scale, gout,
+                                                  f32_d_img=True)
+    torch.cuda.synchronize()
+    ref = dcn_cuda.bilinear_sample_pix_bwd_plain(img, x, y, scale, gout,
+                                                 f32_d_img=True)
+    assert got[0].dtype == ref[0].dtype == torch.float32
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            assert a is None
+            continue
+        err = (a - b).abs().max() / b.abs().max()
+        assert err <= DCN_BWD_TOL, (i, float(err))
+

@@ -42,7 +42,9 @@ def test_import_pulls_in_no_jax():
               "predict", "evaluate", "mvs.__main__", "mvs.blocks", "mvs.dcn",
               "mvs.fmt", "mvs.homography", "mvs.model", "mvs.datasets",
               "mvs.eval_datasets", "mvs.predict", "mvs.evaluate",
-              "fusion.consistency", "fusion.fusion", "data.dtu_fixture"):
+              "fusion.consistency", "fusion.fusion", "data.dtu_fixture",
+              "mvs.loss", "mvs.train", "mvs.facescape_dataset",
+              "ops.dcn_cuda", "utils.profiling"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -130,14 +132,16 @@ def test_user_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
 
 def test_mvs_entry_points_default_to_cuda(monkeypatch, tmp_path):
-    """The two TransMVSNet CLIs run on the card unless --device cpu; the
-    device is resolved before any data is read or a model is built."""
+    """The two TransMVSNet CLIs run on the card unless --device cpu, in
+    every mode; the device is resolved before any data is read or a model
+    is built."""
     from diner_tpu_torch.mvs.__main__ import main as mvs_main
     from diner_tpu_torch.mvs.evaluate import main as mvs_evaluate_main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        mvs_main(["--mode", "write_prediction", "--trainpath",
-                  str(tmp_path), "--trainlist", str(tmp_path / "list.txt")])
+    for mode in ("write_prediction", "train", "profile"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mvs_main(["--mode", mode, "--trainpath", str(tmp_path),
+                      "--trainlist", str(tmp_path / "list.txt")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mvs_evaluate_main(["--testpath", str(tmp_path), "--testlist",
                            "scan1"])
@@ -145,7 +149,7 @@ def test_mvs_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
 def test_kernel_build_goes_to_ignored_build_dir():
     assert sorted(cuda_build.SOURCES) == ["composite_bwd", "composite_fwd",
-                                          "row_gather"]
+                                          "dcn_sample_bwd", "row_gather"]
     for name, src in cuda_build.SOURCES.items():
         path = cuda_build.library_path(name)
         assert path.parent == ROOT / "build" / "kernels"

@@ -13,6 +13,41 @@ helpers those tests share (the tie rule, seeded weights).
   of later stages are compared where both sides' hypotheses agree.
 - ``PNG_LSB``: the uint16 depth / confidence PNGs within 1 unit.
 - ``POINT_ATOL``: fused points equal in count, coordinates within 1e-5.
+
+Training (``tests/test_torch_mvs_train.py``, f32 unless named):
+
+- ``LOSS_RTOL``: losses and metrics within 1e-5 relative (f32 sums taken
+  in another order through convolutions, BN and softmax).
+- ``GRAD_RTOL``: each parameter's gradient and Adam's first moment within
+  1e-3 of their norm (the second moment, of squares, 2e-3): f32 sums in
+  another order through train-mode BN, the 3-D U-Nets and the FMT's 8
+  attention layers, whose toy heads are 2 wide; the largest seen were
+  1.0e-4 and 3.5e-4 on FMT projections in two runs (the CPU's thread
+  split changes the order from run to run).
+- ``PWN_GRAD_RTOL``: PixelwiseNet's gradients within 2e-2 of their norm:
+  its max over the depth planes routes each pixel's gradient to one plane,
+  and where two planes' sigmoids nearly tie f32 rounding picks which (one
+  element of a BN bias off by 1.3 %, 4.3e-3 of the norm, seen at step 3).
+- ``UPDATE_RTOL``: each parameter's update by the train step within 1e-2
+  of Adam's update from its moments (the update is a difference of f32
+  parameters), and of the JAX update's norm over the components whose JAX
+  moment is above 1e-2 of its largest: Adam divides each gradient by its
+  own root mean square, so a component whose gradient is near 0 moves by
+  ±lr on either side of a sign that f32 rounding decides.
+- ``STATS_ATOL``: BN running statistics within 1e-4 (flax takes the batch
+  variance as E[x²] − E[x]², the port in two passes).
+- ``DCN_RTOL``: the DCN sampler's gradients within 1e-5 of their largest
+  magnitude (f32 sums of the same terms in another order);
+  ``DCN_BF16_RTOL``: a bf16 image gradient within one bf16 step (2^-8) of
+  its largest, the f32 sum rounded once on both sides;
+  ``DCN_BF16_AUTODIFF_RTOL``: 2^-5 against JAX's autodiff in bf16, which
+  sums the weight gradient's channel products in bf16.
+- bf16 forwards (``tests/test_torch_mvs_bf16.py``): bf16 keeps 8 bits,
+  and the frameworks round convolutions, softmax and sums at other
+  places, through some 40 layers. ``BF16_VS_JAX``: the port's bf16 stage-1
+  probabilities no further from the f32 forward than 2× the JAX bf16
+  forward's distance (+ 2^-8); ``BF16_PROB_ATOL``: within 6e-2 of the JAX
+  bf16 forward (0.041 seen); ``BF16_LOSS_RTOL``: the loss within 2e-2.
 """
 
 import numpy as np
@@ -23,6 +58,17 @@ PROB_ATOL = 1e-4
 TIE_MARGIN = 1e-4
 PNG_LSB = 1
 POINT_ATOL = 1e-5
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-3
+PWN_GRAD_RTOL = 2e-2
+UPDATE_RTOL = 1e-2
+STATS_ATOL = 1e-4
+DCN_RTOL = 1e-5
+DCN_BF16_RTOL = 2.0 ** -8
+DCN_BF16_AUTODIFF_RTOL = 2.0 ** -5
+BF16_VS_JAX = 2.0
+BF16_PROB_ATOL = 6e-2
+BF16_LOSS_RTOL = 2e-2
 
 
 def assert_close_to_max(got, ref, what=""):
