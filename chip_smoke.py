@@ -3,8 +3,10 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (kernel A, the compositing forward; kernel B, its backward; kernel C, the
-row gather; the DCN sampler's backward), holds each against its plain
-PyTorch version on the card (the DCN backward at edge positions, odd and
+row gather; the DCN sampler's backward; NOVEL's top-1 kNN), holds each
+against its plain PyTorch version on the card (the kNN's indices exactly,
+at edge cases, past 2³¹ / 3 point offsets and at the NOVEL step's shapes
+on 26,317 vertices) (the DCN backward at edge positions, odd and
 even W, C = 5 and 32, with and without its scale, f32 and bf16, and at
 the stage-3 tap of the 512×640 TransMVSNet training step)
 (kernel B at K = 1-100 around its 32-sample chunks and its register path,
@@ -79,6 +81,19 @@ set to 0 just before each and read just after:
   588 selective) and the DCN backward 81 times per step, each process's
   peak within 0.95 of the card, the resume, the written maps, the trace;
   loss, gradients and BN statistics card vs CPU.
+- NOVEL / NOVEL_PE (``novel_*``, before the TransMVSNet phases):
+  ``configs/train_novel_facescape.yaml``'s model, renderer and optimizer
+  (ResNet34 with the 64 px ring, ResnetFC 5 × 512, 40 of 1000 samples, 15
+  Gaussians, a 64×64 patch with MSE + 0.1·VGG19 + 1.0·antibias, Adam at
+  1e-4, f32) on the sphere at FaceScape's shape (256×256, 2 source views, 26,317 mesh vertices): ``python -m
+  diner_tpu_torch.train <yaml> NOVEL`` (then NOVEL_PE) takes 3 steps in a
+  subprocess, then 5 warm steps in this process and one under the
+  profiler; the trained NOVEL renders one 256×256 image in 4,096-ray
+  chunks; one small step of each on the card against the CPU. Checks: the
+  CLI's checkpoint, finite losses and gradients (the plane's too), launches
+  per step (A 1, B 1, C 13 / 21, DCN 0, kNN 3) and per image (A 16, C
+  208, kNN 48), each peak within 0.95 of the card, the loss and every
+  gradient card vs CPU.
 - the training entry point (``train_loop``): ``configs/train_dtu.yaml``
   through the port's ``load_train_config`` with ``data`` replaced by the
   sphere at 512×640 (4 views, the config's 4 scenes a step, f32) and a
@@ -143,10 +158,12 @@ COMPOSITE_FLOPS_PER_SAMPLE = 17  # delta, alpha (exp as 1), w, 4 sums, T
 COMPOSITE_BWD_FLOPS_PER_SAMPLE = 38
 PRUNED = dict(n_coarse_candidates=125, n_refine_bins=16)  # bench.py:84-85
 LOG = []
+T0 = time.perf_counter()
 
 
 def emit(phase, **fields):
-    line = {"phase": phase, **fields}
+    line = {"phase": phase, **fields,
+            "elapsed_s": time.perf_counter() - T0}
     LOG.append(line)
     print(json.dumps(line), flush=True)
 
@@ -440,10 +457,10 @@ def phase_path():
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
     launches_first = read_counts()
-    check(launches_first == (n_chunks, 0, 6 * n_chunks, 0),
-          f"first render launched kernels A, B, C and the DCN backward "
+    check(launches_first == (n_chunks, 0, 6 * n_chunks, 0, 0),
+          f"first render launched kernels A, B, C, the DCN backward and the kNN "
           f"{launches_first} times, expected ({n_chunks}, 0, {6 * n_chunks}"
-          f", 0)")
+          f", 0, 0)")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -454,7 +471,7 @@ def phase_path():
     t_warm = time.perf_counter() - t2
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 6 * n_chunks, 0),
+    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0),
           f"warm render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {6 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -519,7 +536,7 @@ def phase_path_pairs(ev):
     t_warm = time.perf_counter() - t2
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 4 * n_chunks, 0),
+    check(launches == (n_chunks, 0, 4 * n_chunks, 0, 0),
           f"pair-table render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {4 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -562,7 +579,7 @@ def phase_path_pruned(ev):
     t_warm = time.perf_counter() - t2
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 7 * n_chunks, 0),
+    check(launches == (n_chunks, 0, 7 * n_chunks, 0, 0),
           f"pruned render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {7 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -607,7 +624,7 @@ def profile_once(phase, fn):
                                     if name in e.key) / 1e3,
                    "launches": sum(e.count for e in kernels if name in e.key)}
             for name in ("composite_fwd", "composite_bwd", "row_gather",
-                         "dcn_sample_bwd")}
+                         "dcn_sample_bwd", "knn1")}
     emit(phase, wall_ms=wall * 1e3, kernel_ms=busy_ms,
          idle_share=1 - busy_ms / (wall * 1e3),
          device_kernels=sum(e.count for e in kernels), port_kernels=port,
@@ -831,9 +848,9 @@ def phase_train_path(pruned=False):
                                     for g in grads_of(model).values()))
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(c == (1, 1, n_gathers, 0) for c in per_step),
+    check(all(c == (1, 1, n_gathers, 0, 0) for c in per_step),
           f"kernel A, B and C launches per step: {per_step}, expected "
-          f"(1, 1, {n_gathers}, 0)")
+          f"(1, 1, {n_gathers}, 0, 0)")
     check(all(np.isfinite(v) for m in losses for v in m.values()),
           f"non-finite loss: {losses}")
     check(sorted(losses[0]) == ["antibias", "rgb_fine", "total", "vgg_fine"],
@@ -1038,8 +1055,8 @@ def phase_train_small_reference(pruned=False):
         total.backward()
         res[where] = (total.item(), grads_of(m),
                       read_counts())
-    expected = (1, 1, 7 if pruned else 6, 0)
-    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0),
+    expected = (1, 1, 7 if pruned else 6, 0, 0)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0),
           f"card step launches {res['card'][2]}, expected {expected}; "
           f"CPU step {res['cpu'][2]}")
     loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -1227,15 +1244,15 @@ def phase_train_loop():
     check(ts.step == 6, f"resumed fit ended at step {ts.step}, expected 6")
     check([c[0] for c in calls["train"]] == [4, 5],
           f"resumed train steps began at {[c[0] for c in calls['train']]}")
-    check(all(c[1] == (1, 1, 6, 0) for c in calls["train"]),
-          f"kernel A, B, C and DCN backward launches per train step "
-          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6, 0)")
+    check(all(c[1] == (1, 1, 6, 0, 0) for c in calls["train"]),
+          f"kernel A, B, C, DCN backward and kNN launches per train step "
+          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6, 0, 0)")
     n_sweep = TRAIN_LOOP_SWEEP["nframes"] * TRAIN_LOOP_SWEEP["n_cam_sweeps"]
     check(len(calls["eval"]) == 2 + n_sweep and all(
-        c[1] == (n_chunks, 0, 6 * n_chunks, 0) for c in calls["eval"]),
+        c[1] == (n_chunks, 0, 6 * n_chunks, 0, 0) for c in calls["eval"]),
         f"launches per validation and sweep image "
         f"{[c[1] for c in calls['eval']]}, expected 2 + {n_sweep} times "
-        f"({n_chunks}, 0, {6 * n_chunks}, 0)")
+        f"({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
 
     names = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
     check(names == ["step_00000003", "step_00000004", "step_00000006"],
@@ -1526,9 +1543,9 @@ def phase_predict(smi, build_s):
         check(all(np.isfinite(v) for v in scores.values())
               and "lpips_proxy" in scores, f"{name}: scores {scores}")
         check(len(calls) == PREDICT_N and all(
-            c[0] == (n_chunks, 0, 6 * n_chunks, 0) for c in calls),
+            c[0] == (n_chunks, 0, 6 * n_chunks, 0, 0) for c in calls),
             f"{name}: launches per image {[c[0] for c in calls]}, expected "
-            f"({n_chunks}, 0, {6 * n_chunks}, 0)")
+            f"({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
         ends = [t0] + [c[1] for c in calls]
         warm = [b - a for a, b in zip(ends[1:], ends[2:])]
         results[name] = dict(
@@ -2054,6 +2071,542 @@ def gather_path(model, cfg, batch, H, W):
     return counts
 
 
+# ------------------------------------------------------------ NOVEL, kNN
+
+KNN_V = 26317           # FaceScape's mesh (models/novel/regressor.py)
+NOVEL_HW = (256, 256)   # FaceScape's images, 2 source views
+NOVEL_NV = 2            # (scripts/variant_warm_bench.py:8-9)
+NOVEL_CONFIG = ROOT / "configs" / "train_novel_facescape.yaml"
+NOVEL_DIR = OUT_DIR / "novel"
+NOVEL_CLI_STEPS = 3
+NOVEL_WARM_STEPS = 5
+# the kNN's bound: 4 multiply-add-class FP32 operations a point-vertex
+# pair (3 for the dot product, 1 for d²), 2 FLOPs each
+KNN_FLOPS_PER_PAIR = 8
+# index disagreements between the kernel and its plain version are allowed
+# only where the two chosen vertices' exact (float64) squared distances
+# agree within this (coordinates of order 1: f32 rounding of |v|² − 2·p·v
+# is ~1e-6 there); with the same arithmetic in both none is expected
+KNN_DIST_TOL = 1e-5
+# row gathers of one NOVEL forward (sampler map, the sampler's offsets, the
+# samples' two offsets, 4 latent corners, 4 plane corners, the depth) and
+# NOVEL_PE's 8 PE-map corners; the backward is index_add_
+NOVEL_C_PER_STEP = {False: 13, True: 21}
+NOVEL_KNN_PER_STEP = 3  # the sampler's candidates, the samples twice
+NOVEL_TAG = "novel_cli_result="
+
+
+def counted_cli(module, tag, setup=""):
+    """A ``python -c`` script that runs ``setup``, then ``module``'s
+    ``main`` on the script's arguments with every launch count set to 0
+    just before it (``reset_counts``) and read just after it
+    (``read_counts``), and prints one line after ``tag``: main's return
+    value, the counts and the peak allocation. It imports this file, so it
+    runs with the repository's root as its working directory."""
+    return (
+        "import json, sys, torch\n"
+        "from chip_smoke import read_counts, reset_counts\n"
+        f"from {module} import main\n" + setup +
+        "reset_counts()\n"
+        "records = main(sys.argv[1:])\n"
+        f"print({tag!r} + json.dumps(dict(records=records, "
+        "launches=list(read_counts()), "
+        "peak=torch.cuda.max_memory_allocated())))\n")
+
+
+# ``python -m diner_tpu_torch.train ARGS`` under ``counted_cli``
+NOVEL_CLI = counted_cli("diner_tpu_torch.train.__main__", NOVEL_TAG)
+
+
+def knn_bound(SB, N, V):
+    """(bound ms, what bounds it): the operations (every pair) over the
+    FP32 rate, or the bytes (points and vertices read once, indices
+    written once) over the memory rate."""
+    ops_ms = 1e3 * SB * N * V * KNN_FLOPS_PER_PAIR / F32_FLOPS_PER_S
+    bytes_ms = 1e3 * SB * (N * 16 + V * 12) / HBM_BYTES_PER_S
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def knn_compare(points, verts, offsets=None):
+    """The kernel against its plain version on one input: index
+    disagreements, the largest gap between the two chosen vertices' exact
+    squared distances where they disagree, and (with ``offsets``) the
+    deformed points' largest error where they agree."""
+    from diner_tpu_torch.ops import knn_cuda
+    from diner_tpu_torch.ops.knn import deform_points
+    got = knn_cuda.knn1_kernel(points, verts)
+    torch.cuda.synchronize()
+    ref = knn_cuda.knn1_plain(points, verts)
+    diff = got != ref
+    n_diff = int(diff.sum())
+    gap = 0.0
+    if n_diff:
+        s, i = diff.nonzero(as_tuple=True)
+        p = points[s, i].double()
+        d_got = ((p - verts[s, got[s, i].long()].double()) ** 2).sum(-1)
+        d_ref = ((p - verts[s, ref[s, i].long()].double()) ** 2).sum(-1)
+        gap = float((d_got - d_ref).abs().max())
+    row = dict(SB=points.shape[0], N=points.shape[1], V=verts.shape[1],
+               index_disagreements=n_diff, distance_gap=gap,
+               exact=n_diff == 0)
+    if offsets is not None:
+        moved = deform_points(points, verts, offsets)
+        plain = points + torch.gather(
+            offsets, 1, ref.long()[..., None].expand(-1, -1, 3))
+        agree = ~diff
+        row["deformed_max_abs_err"] = (
+            float((moved - plain)[agree].abs().max()) if agree.any()
+            else 0.0)
+    row["max_abs_err"] = row.get("deformed_max_abs_err", 0.0)
+    return row, got
+
+
+def knn_timed(points, verts, big):
+    """``ms`` / ``call_ms`` of the kernel, ``plain_ms`` of the plain
+    version and ``library_ms`` of ``torch.cdist(...).argmin(-1)`` in the
+    plain version's chunks (no single PyTorch call computes a top-1
+    index). With ``big`` (a quarter second or more a call for the plain
+    version and cdist) those two are timed over 3 calls between CUDA
+    events, not in a graph, and the kernel's graph holds 5 calls."""
+    from diner_tpu_torch.ops import knn_cuda
+
+    def kernel():
+        return knn_cuda.knn1_kernel(points, verts)
+
+    def plain():
+        return knn_cuda.knn1_plain(points, verts)
+
+    def library():
+        return torch.cat([torch.cdist(points[:, s:s + 2048], verts)
+                          .argmin(-1) for s in range(0, points.shape[1],
+                                                     2048)], dim=1)
+
+    if big:
+        t = dict(ms=device_time_ms(kernel, n=5, replays=3),
+                 call_ms=cuda_time_ms(kernel, 5, 1),
+                 plain_ms=cuda_time_ms(plain, 3, 1),
+                 library_ms=cuda_time_ms(library, 3, 1),
+                 plain_timing="3 calls between CUDA events")
+    else:
+        t = dict(ms=device_time_ms(kernel, n=20), call_ms=cuda_time_ms(
+                     kernel, 10, 2),
+                 plain_ms=device_time_ms(plain, n=5, replays=3),
+                 library_ms=device_time_ms(library, n=5, replays=3),
+                 plain_timing="CUDA graph of 5 calls")
+    bound, by = knn_bound(*points.shape[:2], verts.shape[1])
+    return dict(t, bound_ms=bound, bound_by=by)
+
+
+def knn_edge_cases(device, seed=0):
+    """name → (points, vertices, expected indices or None): N and V no
+    multiples of the block (256) or the tile (2048), V = 1, duplicated
+    vertices (the first copy wins), exact ties on a lattice, two scenes
+    with different vertex sets, points as a strided view, NaN inputs (the
+    first NaN distance wins, as ``argmin``'s), and three tiles with an
+    infinite vertex, a huge one (|v|² overflows) and a NaN one, and a huge
+    point (its products overflow): the kernel's NaN-aware scan runs on
+    some tiles and not on others."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    v = rand(1, 2049, 3)
+    lattice = torch.stack(torch.meshgrid(
+        *(torch.arange(4.0, device=device),) * 3, indexing="ij"),
+        dim=-1).reshape(1, -1, 3)
+    centres = lattice[:, :27] + 0.5  # 8 lattice vertices tie at each
+    two = rand(2, 500, 3)
+    two[1] += 3.0
+    wide = rand(1, 1001, 6)
+    nan_v = v[:, :40].clone()
+    nan_v[0, 5, 1] = nan_v[0, 9, 0] = float("nan")
+    nan_p = rand(1, 300, 3)
+    nan_p[0, 7, 2] = float("nan")  # every distance NaN: index 0
+    nan_expected = torch.full((1, 300), 5, dtype=torch.int32, device=device)
+    nan_expected[0, 7] = 0
+    # tile 0: (inf, 0, 0) at 300, NaN d² for x > 0; tile 1: 1e30 at 3000,
+    # d² = +inf; tile 2: a NaN at 4100, the first NaN for x < 0
+    inf_v = rand(1, 4200, 3)
+    inf_v[0, 300] = torch.tensor([float("inf"), 0.0, 0.0])
+    inf_v[0, 3000] = 1e30
+    inf_v[0, 4100, 2] = float("nan")
+    inf_p = rand(1, 500, 3)
+    inf_p[0, 10] = 1e20
+    inf_expected = torch.where(inf_p[..., 0] > 0, 300, 4100).int()
+    return {
+        "n1001_v2049": (rand(1, 1001, 3), v, None),
+        "n257_v1": (rand(1, 257, 3), v[:, :1],
+                    torch.zeros((1, 257), dtype=torch.int32, device=device)),
+        "duplicates": (rand(1, 3000, 3), torch.cat([v, v], dim=1), None),
+        "lattice_ties": (centres, lattice, None),
+        "sb2_distinct_sets": (rand(2, 300, 3) + torch.tensor(
+            [[[0.0]], [[3.0]]], device=device), two, None),
+        "strided_points": (wide[..., :3], v[:, :100], None),
+        "n0": (rand(1, 0, 3), v, None),
+        "nan_inputs": (nan_p, nan_v, nan_expected),
+        "nonfinite_tiles": (inf_p, inf_v, inf_expected),
+    }
+
+
+def phase_kernel_knn():
+    """The top-1 kNN kernel against its plain version: the edge cases of
+    ``knn_edge_cases`` (every index equal), a 64-bit-offset case (N·3 past
+    2³¹: 716 million points, V = 2, the answer known from the sign of x),
+    and the NOVEL step's shapes on FaceScape's 26,317 vertices (the
+    sphere's surface points): the sampler's 4,096 rays × 1,000 candidates
+    at random points and ``deform_points``' 4,096 × 40 samples, each timed,
+    and the candidates of one 4,096-ray chunk of the 256×256 render (the
+    sampler's shape, so only compared). Every index
+    disagreement must be a distance tie within ``KNN_DIST_TOL``; the
+    deformed points equal where the indices agree."""
+    from diner_tpu_torch.data.synthetic_dataset import SphereDataset
+    from diner_tpu_torch.ops import knn_cuda
+    from diner_tpu_torch.ops.sampling import stratified_z
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.diner import target_rays
+    rows = []
+    for name, (pts, verts, expected) in knn_edge_cases("cuda").items():
+        row, got = knn_compare(pts, verts)
+        if expected is not None:
+            row["exact"] = row["exact"] and torch.equal(got, expected)
+        if name == "duplicates":  # the first copy of each vertex wins
+            row["exact"] = row["exact"] and int(got.max()) < 2049
+        emit("kernel_knn", case=name, **row)
+        check(row["exact"], f"kNN kernel vs plain, {name}: {row}")
+        rows.append(dict(case=name, **row))
+
+    n = 716_000_000  # N·3 > 2^31
+    pts = torch.rand((1, n, 3), device="cuda") * 2 - 1
+    verts = torch.tensor([[[-1.0, 0, 0], [1.0, 0, 0]]], device="cuda")
+    got = knn_cuda.knn1_kernel(pts, verts)
+    torch.cuda.synchronize()
+    ok = bool((got == (pts[..., 0] > 0).int()).all())
+    row = dict(case="offsets_64bit", SB=1, N=n, V=2, exact=ok,
+               index_disagreements=int((got != (pts[..., 0] > 0).int())
+                                       .sum()), max_abs_err=0.0)
+    emit("kernel_knn", **row)
+    check(ok, f"kNN kernel past 2^31 / 3 points: {row}")
+    rows.append(row)
+    del pts, got
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    verts = torch.from_numpy(SphereDataset._surface_points(KNN_V, 0))[
+        None].cuda()
+    offsets = torch.randn((1, KNN_V, 3), generator=g, device="cuda") * 0.02
+    b = {k: torch.from_numpy(v[None]).cuda() for k, v in SphereDataset(
+        "val", n=1, H=NOVEL_HW[0], W=NOVEL_HW[1], nv=NOVEL_NV)[0].items()
+        if isinstance(v, np.ndarray)}
+    H, W = NOVEL_HW
+    # the config's znear / zfar
+    rays = target_rays(load_train_config(NOVEL_CONFIG).diner, b, H, W)
+    mid = H * W // 2 - 2048
+    chunk = rays[:, mid:mid + 4096].contiguous()
+    u = torch.rand((1, 4096, 1000), generator=g, device="cuda")
+    z = stratified_z(chunk, 1000, u)
+    # (name, points, timing: None, or big as knn_timed takes it); the
+    # render chunk has the sampler's shape, so it is compared, not timed
+    cases = (
+        ("sampler", torch.rand((1, 4096 * 1000, 3), generator=g,
+                               device="cuda") * 1.2 - 0.6, True),
+        ("deform", torch.rand((1, 4096 * 40, 3), generator=g,
+                              device="cuda") * 1.2 - 0.6, False),
+        ("render_chunk", (chunk[..., None, :3] + z[..., None]
+                          * chunk[..., None, 3:6]).reshape(1, -1, 3), None))
+    for name, pts, big in cases:
+        row, _ = knn_compare(pts, verts, offsets)
+        if big is not None:
+            row.update(knn_timed(pts, verts, big))
+        row["case"] = name
+        emit("kernel_knn", **row)
+        check(row["distance_gap"] <= KNN_DIST_TOL
+              and row["deformed_max_abs_err"] == 0.0,
+              f"kNN kernel vs plain at {name}: {row}")
+        rows.append(row)
+        del pts
+        torch.cuda.empty_cache()
+    return rows
+
+
+def novel_yaml(model):
+    """``configs/train_novel_facescape.yaml`` with only ``data`` swapped
+    for the sphere at FaceScape's shape (256×256, 2 source views, 26,317
+    mesh vertices) and the run written under ``NOVEL_DIR``; written as
+    JSON (valid YAML) → its path."""
+    from diner_tpu_torch.train.config import load_train_config
+    raw = load_train_config(NOVEL_CONFIG).raw
+    sphere = {"module": "synthetic_sphere", "kwargs": {
+        "n": 8, "H": NOVEL_HW[0], "W": NOVEL_HW[1], "nv": NOVEL_NV,
+        "n_vertices": KNN_V}}
+    for stage in ("train", "val"):
+        raw["data"][stage]["dataset"] = sphere
+    raw["logger"]["kwargs"].update(save_dir=str(NOVEL_DIR / "runs"),
+                                   version=model)
+    NOVEL_DIR.mkdir(parents=True, exist_ok=True)
+    path = NOVEL_DIR / f"{model}.yaml"
+    path.write_text(json.dumps(raw, indent=1))
+    return path
+
+
+def novel_step_launches(use_pe):
+    return (1, 1, NOVEL_C_PER_STEP[use_pe], 0, NOVEL_KNN_PER_STEP)
+
+
+def phase_novel_train(smi, use_pe):
+    """NOVEL (or NOVEL_PE) training at ``configs/train_novel_facescape
+    .yaml``'s width on the sphere at FaceScape's shape: ``python -m
+    diner_tpu_torch.train <yaml> NOVEL --max-steps 3`` in a subprocess
+    (``NOVEL_CLI``), then in this process ``create_novel_state`` and the
+    train step: 2 warm-up and ``NOVEL_WARM_STEPS`` timed steps, one step
+    under the profiler. Checks: the CLI's checkpoint and launches, each
+    step's launches (A 1, B 1, C ``NOVEL_C_PER_STEP``, DCN 0, kNN 3),
+    finite losses and gradients, the plane's gradient, moved parameters,
+    both peaks within ``MEMORY_SHARE_LIMIT`` of the card. Returns the train
+    step, a batch and {path: launches}."""
+    from diner_tpu_torch.data.loader import DataLoader
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.models.novel.train import (build_novel_run_config,
+                                                    create_novel_state)
+    from diner_tpu_torch.train import checkpoint as ckpt_lib
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.loop import arrays_of
+    model = "NOVEL_PE" if use_pe else "NOVEL"
+    phase = "novel_pe_train" if use_pe else "novel_train"
+    path = novel_yaml(model)
+    run_cfg = load_train_config(path, model_name=model)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    mem_limit = int(MEMORY_SHARE_LIMIT * total_mem)
+    per_step = novel_step_launches(use_pe)
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-c", NOVEL_CLI, str(path), model, "--max-steps",
+         str(NOVEL_CLI_STEPS), "--device", "cuda"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    (NOVEL_DIR / f"{model}_cli.log").write_text(cli.stdout + cli.stderr)
+    check(cli.returncode == 0 and NOVEL_TAG in cli.stdout,
+          f"{model} CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    res = json.loads(cli.stdout.split(NOVEL_TAG)[-1].splitlines()[0])
+    ckpt = ckpt_lib.latest_checkpoint(run_cfg.run_dir / "checkpoints")
+    saved = ckpt_lib.load_state(ckpt)
+    check(saved["step"] == NOVEL_CLI_STEPS and all(
+        bool(torch.isfinite(v).all()) for v in saved["model"].values()),
+        f"{model} CLI checkpoint {ckpt}: step {saved['step']}")
+    check(("deformation_layer.weight" in saved["model"]) == use_pe,
+          f"{model} CLI checkpoint's parameters")
+    cli_expected = [n * NOVEL_CLI_STEPS for n in per_step]
+    check(res["launches"] == cli_expected,
+          f"{model} CLI launches {res['launches']}, expected "
+          f"{cli_expected}")
+    check(res["peak"] <= mem_limit, f"{model} CLI peak {res['peak']} B")
+    del saved
+
+    cfg = build_novel_run_config(run_cfg, use_pe)
+    batch = arrays_of(next(iter(DataLoader(run_cfg.build_dataset("train"),
+                                           1, num_workers=0))))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_novel_state(cfg, device="cuda",
+                               vgg=init_vgg19(0, device="cuda"))
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    params0 = {n: p.detach().clone()
+               for n, p in state.model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t1 = time.perf_counter()
+    state(batch, generator=gen)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    grads = {n: p.grad for n, p in state.model.named_parameters()}
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          f"{model}: non-finite gradient in the first step")
+    check(float(grads["gen_latent"].abs().max()) > 0,
+          f"{model}: no gradient reached the gen-latent plane")
+    moved = sum(not torch.equal(p.detach(), params0[n])
+                for n, p in state.model.named_parameters())
+    check(moved > 0, f"{model}: no parameter moved")
+    del params0
+    state(batch, generator=gen)
+    torch.cuda.synchronize()
+    times, losses, launches = [], [], []
+    for _ in range(NOVEL_WARM_STEPS):
+        reset_counts()
+        t2 = time.perf_counter()
+        m = state(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t2)
+        launches.append(read_counts())
+        losses.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    check(all(c == per_step for c in launches),
+          f"{model}: launches per step {launches}, expected {per_step}")
+    measured = tuple(map(sum, zip(*launches)))
+    check(all(np.isfinite(v) for x in losses for v in x.values())
+          and sorted(losses[0]) == ["antibias", "rgb_fine", "total",
+                                    "vgg_fine"], f"{model}: {losses}")
+    check(peak <= mem_limit, f"{model}: peak {peak} B")
+    s_step = statistics.median(times)
+    emit(phase, config=f"{model}, configs/train_novel_facescape.yaml "
+         f"(ResNet34, ResnetFC 5x512, 40 of 1000 samples, 15 Gaussians, "
+         f"64x64 patch, f32); sphere {NOVEL_HW[0]}x{NOVEL_HW[1]}, "
+         f"{NOVEL_NV} views, {KNN_V} mesh vertices", nvidia_smi=smi,
+         rays_per_step=cfg.rays_per_step, cli_steps=NOVEL_CLI_STEPS,
+         cli_s=t_cli, cli_peak_mem_bytes=res["peak"],
+         cli_launches=res["launches"], model_init_s=t_model,
+         first_step_s=t_first, time_to_first_step_s=t_model + t_first,
+         s_per_step=s_step, s_per_step_all=times,
+         rays_per_s=cfg.rays_per_step / s_step, peak_mem_bytes=peak,
+         memory_limit_bytes=mem_limit, launches_per_step=launches,
+         expected_launches_per_step=per_step, params_moved=moved,
+         losses=losses)
+    profile_once(phase + "_profile", lambda: state(batch, generator=gen))
+    return state, batch, {
+        phase: measured,
+        phase.replace("_train", "_cli"): tuple(res["launches"])}
+
+
+def phase_novel_render(state, batch):
+    """One 256×256 target through ``render_rays_novel`` in 4,096-ray
+    chunks with the trained NOVEL state (batch statistics, as the DINER
+    eval step encodes): a first image, then 2 timed. Checks: a finite image
+    of the right shape; per image kernel A 16 times, B never, C 13 and the
+    kNN 3 times per chunk."""
+    from diner_tpu_torch.models.novel.renderer import render_rays_novel
+    from diner_tpu_torch.models.novel.train import NOVEL_KEYS, gen_context_of
+    from diner_tpu_torch.train.diner import (SRC_KEYS, batch_to_device,
+                                             target_rays)
+    model, cfg = state.model, state.cfg
+    b = batch_to_device(batch, "cuda")
+    H, W = NOVEL_HW
+    chunk = cfg.renderer.ray_chunk
+    n_chunks = -(-H * W // chunk)
+
+    @torch.no_grad()
+    def render(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ctx = model.encode(*(b[k] for k in SRC_KEYS))
+        gen = gen_context_of(model, b, W, H)
+        rays = target_rays(cfg, b, H, W)
+        rgb, depth = [], []
+        for s in range(0, H * W, chunk):
+            o = render_rays_novel(model.field, ctx, gen,
+                                  rays[:, s:s + chunk].contiguous(),
+                                  *(b[k] for k in NOVEL_KEYS), cfg.renderer,
+                                  generator=g)
+            rgb.append(o.rgb)
+            depth.append(o.depth)
+        torch.cuda.synchronize()
+        return (torch.cat(rgb, 1).reshape(1, H, W, 3),
+                torch.cat(depth, 1).reshape(1, H, W))
+
+    times, counts = [], []
+    for seed in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        rgb, depth = render(seed)
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+    expected = (n_chunks, 0, NOVEL_C_PER_STEP[False] * n_chunks, 0,
+                NOVEL_KNN_PER_STEP * n_chunks)
+    check(rgb.shape == (1, H, W, 3) and bool(torch.isfinite(rgb).all())
+          and bool(torch.isfinite(depth).all()),
+          f"NOVEL render: {rgb.shape}, finite {torch.isfinite(rgb).all()}")
+    check(all(c == expected for c in counts),
+          f"NOVEL render launches per image {counts}, expected {expected}")
+    emit("novel_render", image_hw=NOVEL_HW, chunks=n_chunks,
+         first_image_s=times[0], s_per_image=statistics.median(times[1:]),
+         s_per_image_all=times, launches_per_image=counts,
+         expected_launches_per_image=expected,
+         rgb_mean=float(rgb.mean()), depth_mean=float(depth.mean()))
+    return {"novel_render": tuple(map(sum, zip(*counts)))}
+
+
+def phase_novel_small_reference(use_pe):
+    """One small NOVEL (NOVEL_PE) step on the card against the same step on
+    the CPU: 24×24 sphere, resnet18 with 2 levels, d_hidden 32, a 16×16
+    plane, 8 of 64 samples, MSE + VGG + antibias on an 8×8 patch,
+    non-zero random mesh offsets; same weights, VGG, pixels and noise, f32.
+    The loss and every gradient over its norm are held to the DINER
+    ``train_small_reference``'s tolerances."""
+    import copy
+
+    from diner_tpu_torch.data.synthetic_dataset import SphereDataset
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.models.novel.model import NovelPixelNeRFConfig
+    from diner_tpu_torch.models.novel.train import (NovelConfig,
+                                                    compute_novel_losses,
+                                                    create_novel_model)
+    from diner_tpu_torch.nn.spatial_encoder import SpatialEncoderConfig
+    from diner_tpu_torch.renderer import RendererConfig, draw_noise
+    from diner_tpu_torch.train.diner import batch_to_device, select_pixels
+    model = "NOVEL_PE" if use_pe else "NOVEL"
+    cfg = NovelConfig(
+        nerf=NovelPixelNeRFConfig(
+            encoder=SpatialEncoderConfig(backbone="resnet18", num_layers=2,
+                                         image_padding=8),
+            d_hidden=32, gen_latent_hw=16, gen_latent_ch=128,
+            use_pe_maps=use_pe),
+        renderer=RendererConfig(n_samples=8, n_depth_candidates=64,
+                                n_gaussian=3, white_bkgd=True),
+        w_vgg=0.1, vgg_spatch=8, w_antibias=1.0)
+    s = SphereDataset("train", n=2, H=24, W=24, nv=2, model=model,
+                      n_vertices=300)[1]
+    batch = {k: v[None] for k, v in s.items() if isinstance(v, np.ndarray)}
+    rng = np.random.default_rng(3)
+    for k in ("offset_target_to_source", "offset_target_to_gen"):
+        batch[k] = rng.normal(0, 0.02, batch[k].shape).astype(np.float32)
+    cpu_model = create_novel_model(cfg, seed=0, device="cpu")
+    cpu_vgg = init_vgg19(0, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    pix = select_pixels(cfg, batch_to_device(batch, "cpu"), g)
+    noise = draw_noise(cfg.renderer, 1, cfg.rays_per_step, generator=g)
+    res = {}
+    for where, dev in (("cpu", "cpu"), ("card", "cuda")):
+        m = copy.deepcopy(cpu_model).to(dev)
+        reset_counts()
+        total, _ = compute_novel_losses(
+            m, cfg, batch_to_device(batch, dev),
+            copy.deepcopy(cpu_vgg).to(dev), pix_idcs=pix.to(dev),
+            noise=tuple(t.to(dev) for t in noise))
+        total.backward()
+        res[where] = (total.item(), grads_of(m), read_counts())
+    expected = novel_step_launches(use_pe)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0),
+          f"{model} card step launches {res['card'][2]}, expected "
+          f"{expected}; CPU step {res['cpu'][2]}")
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    worst, name, nonzero = grad_errs(res["card"][1], res["cpu"][1])
+    emit("novel_pe_small_reference" if use_pe else "novel_small_reference",
+         rays=cfg.rays_per_step, loss_card=res["card"][0],
+         loss_cpu=res["cpu"][0], loss_rel_err=loss_err,
+         worst_grad_err_over_norm=worst, worst_param=name,
+         params=len(res["cpu"][1]), params_grad_nonzero=nonzero, tol=1e-3)
+    check(loss_err <= 1e-4 and worst <= 1e-3,
+          f"{model} card vs CPU step: loss {loss_err}, grad {worst} at "
+          f"{name}")
+
+
+def phases_novel(smi):
+    """The NOVEL phases in order; their files are deleted after. Returns
+    {path: (A, B, C, DCN backward, kNN) launches}."""
+    state, batch, launches = phase_novel_train(smi, use_pe=False)
+    launches.update(phase_novel_render(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+    launches.update(phase_novel_train(smi, use_pe=True)[2])
+    torch.cuda.empty_cache()
+    phase_novel_small_reference(use_pe=False)
+    phase_novel_small_reference(use_pe=True)
+    shutil.rmtree(NOVEL_DIR, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------------ TransMVSNet
 
 MVS_DIR = OUT_DIR / "mvs"
@@ -2165,16 +2718,19 @@ def spy_run_model(records):
 
 
 def reset_counts():
-    from diner_tpu_torch.ops import composite_cuda, dcn_cuda, gather_cuda
+    from diner_tpu_torch.ops import (composite_cuda, dcn_cuda, gather_cuda,
+                                     knn_cuda)
     composite_cuda.launches = composite_cuda.bwd_launches = 0
-    gather_cuda.launches = dcn_cuda.launches = 0
+    gather_cuda.launches = dcn_cuda.launches = knn_cuda.launches = 0
 
 
 def read_counts():
-    """Launches of kernels A, B, C and the DCN sampler's backward."""
-    from diner_tpu_torch.ops import composite_cuda, dcn_cuda, gather_cuda
+    """Launches of kernels A, B, C, the DCN sampler's backward and the
+    top-1 kNN."""
+    from diner_tpu_torch.ops import (composite_cuda, dcn_cuda, gather_cuda,
+                                     knn_cuda)
     return (composite_cuda.launches, composite_cuda.bwd_launches,
-            gather_cuda.launches, dcn_cuda.launches)
+            gather_cuda.launches, dcn_cuda.launches, knn_cuda.launches)
 
 
 def map_times(t0, records):
@@ -2304,10 +2860,10 @@ def phase_mvs_write_prediction(smi):
          loaded_bit_for_bit=same, written=len(written), depth_maps=maps)
     check(same, "the loaded TransMVSNet weights are not the checkpoint's")
     check(len(written) == 4 and len(records) == 4, f"{len(written)} maps")
-    check(all(r["launches"] == (0, 0, per_map, 0) for r in records)
-          and launches == (0, 0, 4 * per_map, 0),
+    check(all(r["launches"] == (0, 0, per_map, 0, 0) for r in records)
+          and launches == (0, 0, 4 * per_map, 0, 0),
           f"launches per map {[r['launches'] for r in records]}, expected "
-          f"(0, 0, {per_map}, 0)")
+          f"(0, 0, {per_map}, 0, 0)")
     lsb = DEPTH_PNG_SCALE * predict.DTU_DEPTH_UNSCALE
     for m in maps:
         check(m["shape"] == list(MVS_WRITE_HW) and m["finite"]
@@ -2512,9 +3068,9 @@ def phase_mvs_test(smi):
             ply_properties=names, ply_colors=colors is not None,
             points=res["scan1"]["points"])
         check(len(records) == len(cams) and all(
-            r["launches"] == (0, 0, per_map, 0) for r in records),
+            r["launches"] == (0, 0, per_map, 0, 0) for r in records),
             f"{method}: launches per map {runs[method]['launches_per_map']}, "
-            f"expected (0, 0, {per_map}, 0)")
+            f"expected (0, 0, {per_map}, 0, 0)")
         check(len(pfms) == 2 * len(cams) and runs[method]["pfms_finite"]
               and runs[method]["pfm_shapes"] == [MVS_TEST_HW],
               f"{method}: PFMs {len(pfms)}, shapes "
@@ -2616,9 +3172,9 @@ def phase_mvs_pipeline(wp):
     check(decoded_equal, "DTUDataset's source depths are not the PNGs")
     check(model_err <= 1.001 * DEPTH_PNG_SCALE * DTU_DEPTH_UNSCALE,
           f"source depths {model_err} from the model's maps")
-    check(launches == (n_chunks, 0, 6 * n_chunks, 0),
-          f"DINER render launched kernels A, B, C and the DCN backward "
-          f"{launches} times, expected ({n_chunks}, 0, {6 * n_chunks}, 0)")
+    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0),
+          f"DINER render launched kernels A, B, C, the DCN backward and the kNN "
+          f"{launches} times, expected ({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
     check_image(rgb, depth, 512, 640)
     del model, step
     torch.cuda.empty_cache()
@@ -2690,24 +3246,13 @@ MVS_TRAIN_STEPS = 10     # the f32 and bf16 runs
 MVS_TRAIN_AUTOGRAD_STEPS = 3  # DCN_CUSTOM_VJP = False
 MVS_TRAIN_RESUME_STEPS = 2    # the second process, after the f32 run
 MVS_TRAIN_TAG = "mvs_train_result="
-# ``python -m diner_tpu_torch.mvs ARGS`` with the DCN sampler's gradient
-# chosen by the first argument ("1": the Function, "0": autograd of the
-# gathers), the launch counts of kernels A, B, C and the DCN backward set
-# to 0 before the CLI's main and read after it, then one line: its
-# records, the counts and the peak allocation
-MVS_TRAIN_CLI = (
-    "import json, sys, torch\n"
-    "from diner_tpu_torch.mvs import dcn\n"
-    "from diner_tpu_torch.mvs.__main__ import main\n"
-    "from diner_tpu_torch.ops import composite_cuda, dcn_cuda, gather_cuda\n"
-    "dcn.DCN_CUSTOM_VJP = sys.argv[1] == '1'\n"
-    "composite_cuda.launches = composite_cuda.bwd_launches = 0\n"
-    "gather_cuda.launches = dcn_cuda.launches = 0\n"
-    "records = main(sys.argv[2:])\n"
-    "print('" + MVS_TRAIN_TAG + "' + json.dumps(dict(records=records, "
-    "launches=[composite_cuda.launches, composite_cuda.bwd_launches, "
-    "gather_cuda.launches, dcn_cuda.launches], "
-    "peak=torch.cuda.max_memory_allocated())))\n")
+# ``python -m diner_tpu_torch.mvs ARGS`` under ``counted_cli``, with the DCN
+# sampler's gradient chosen by the first argument ("1": the Function, "0":
+# autograd of the gathers), which the script takes off before main's
+MVS_TRAIN_CLI = counted_cli(
+    "diner_tpu_torch.mvs.__main__", MVS_TRAIN_TAG,
+    setup="from diner_tpu_torch.mvs import dcn\n"
+          "dcn.DCN_CUSTOM_VJP = sys.argv.pop(1) == '1'\n")
 
 
 def mvs_train_launches(cfg, views, custom_vjp=True):
@@ -2798,14 +3343,14 @@ def phase_mvs_train(smi):
             time_to_first_step_s=r["step_seconds_from_start"][0],
             wall_s=r["wall_s"], peak_mem_bytes=r["peak"],
             launches=r["launches"],
-            expected_launches_per_step=[0, 0, per_c, per_d])
+            expected_launches_per_step=[0, 0, per_c, per_d, 0])
         check(len(recs) == steps and [x["step"] for x in recs]
               == list(range(1, steps + 1)), f"{name}: steps {recs}")
         check(all(np.isfinite(x["loss"]) for x in recs)
               and runs[name]["skipped"] == 0, f"{name}: {runs[name]}")
-        expected = [0, 0, per_c * steps, per_d * steps]
+        expected = [0, 0, per_c * steps, per_d * steps, 0]
         check(r["launches"] == expected,
-              f"{name}: kernel A, B, C and DCN backward launches "
+              f"{name}: kernel A, B, C, DCN backward and kNN launches "
               f"{r['launches']}, expected {expected}")
         check(r["peak"] <= mem_limit, f"{name}: peak {r['peak']} B over "
               f"{MEMORY_SHARE_LIMIT} of {total_mem} B")
@@ -2827,7 +3372,7 @@ def phase_mvs_train(smi):
         f"resume: {runs['resume']}")
     per = runs["f32"]["expected_launches_per_step"]
     check(r["launches"] == [n * MVS_TRAIN_RESUME_STEPS for n in per],
-          f"resume: kernel A, B, C and DCN backward launches "
+          f"resume: kernel A, B, C, DCN backward and kNN launches "
           f"{r['launches']}, expected {per} a step")
 
     ckpt = f32_dir / "checkpoints" / \
@@ -2852,7 +3397,7 @@ def phase_mvs_train(smi):
         ckpt=str(ckpt.relative_to(ROOT)), maps=len(written), cli_s=t_wp,
         launches=wp_launches, finite=maps_finite)
     check(len(written) == 4 and all(maps_finite)
-          and wp_launches == (0, 0, 4 * MVS_C_PER_MAP[views], 0),
+          and wp_launches == (0, 0, 4 * MVS_C_PER_MAP[views], 0, 0),
           f"write_prediction from the trained checkpoint: "
           f"{runs['write_prediction']}")
 
@@ -3050,7 +3595,7 @@ def phase_mvs_train_small_reference():
                           launches_card=got["launches"],
                           launches_cpu=ref["launches"])
         check(got["launches"][2] > 0 and got["launches"][3] == DCN_BWD_PER_STEP
-              and ref["launches"] == (0, 0, 0, 0),
+              and ref["launches"] == (0, 0, 0, 0, 0),
               f"{mode}: launches card {got['launches']}, cpu "
               f"{ref['launches']}")
     emit("mvs_train_small_reference", hw=list(MVS_SMALL_HW), views=3,
@@ -3117,6 +3662,7 @@ def main():
     bwd_rows = phase_kernel_bwd()
     gather_rows = phase_kernel_gather()
     dcn_rows = phase_kernel_dcn_bwd()
+    knn_rows = phase_kernel_knn()
     eval_l, ev = phase_path()
     pairs_l = phase_path_pairs(ev)
     pruned_l = phase_path_pruned(ev)
@@ -3135,6 +3681,8 @@ def main():
     predict_l, folder = phase_predict(smi, build_s)
     phase_pretrained(folder)
     torch.cuda.empty_cache()
+    novel_l = phases_novel(smi)
+    torch.cuda.empty_cache()
     mvs_l, mvs_gather_rows = phases_mvs(smi)
     torch.cuda.empty_cache()
     train_loop_l = phase_train_loop()
@@ -3145,9 +3693,10 @@ def main():
              "train_steps_pruned": train_pruned_l,
              "predict": predict_l["nsamples64"],
              "predict_nsamples32": predict_l["nsamples32"],
-             **mvs_l, "train_loop": train_loop_l}
+             **novel_l, **mvs_l, "train_loop": train_loop_l}
 
     def entry(name, row_list, main, replaces, which, library_ms=None):
+        # launches per path: (A, B, C, DCN backward, kNN)
         by_path = {p: launches[which] for p, launches in paths.items()}
         return {
             "name": name, "route": "cuda",
@@ -3161,6 +3710,7 @@ def main():
             "library_ms": library_ms,
         }
 
+    knn_sampler = next(r for r in knn_rows if r["case"] == "sampler")
     dcn_f32 = next(r for r in dcn_rows if r["case"] == "tap_stage3"
                    and r["dtype"] == "torch.float32")
     # kernel C's row: one eval latent corner (the path's largest gather
@@ -3223,6 +3773,24 @@ def main():
                                        "with_scale", "err_d_img_f32",
                                        "err_d_xy_scale") + timed if k in r}
                     for r in dcn_rows]),
+        # the train step's sampler shape (4,096 rays × 1,000 candidates on
+        # 26,317 vertices); deform_points' and a render chunk's beside it
+        dict(entry("knn1", knn_rows, knn_sampler, "diner_tpu/ops/knn.py:16",
+                   4, library_ms=knn_sampler["library_ms"]),
+             library_ms_note="no single PyTorch call computes a top-1 "
+             "index: torch.cdist(points, vertices).argmin(-1) in the plain "
+             "version's 2,048-point chunks; at the sampler and render-chunk "
+             "shapes plain_ms and library_ms are 3 calls between CUDA "
+             "events, not a graph",
+             launches_per_step={p: paths[p][4] / NOVEL_WARM_STEPS
+                                for p in ("novel_train", "novel_pe_train")},
+             index_disagreements=sum(r["index_disagreements"]
+                                     for r in knn_rows),
+             distance_gap=max(r.get("distance_gap", 0.0) for r in knn_rows),
+             cases=[{k: r[k] for k in (
+                 "case", "SB", "N", "V", "index_disagreements",
+                 "distance_gap", "deformed_max_abs_err", "plain_timing")
+                 + timed if k in r} for r in knn_rows]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -2,10 +2,16 @@
 runs without any data on disk). Each index varies the target camera angle.
 
 Port of ``diner_tpu/data/synthetic_dataset.py:SphereDataset`` on the port's
-``data/synthetic.py``, with the DINER batch schema (images, depths and
-cameras) and the camera sweep of validation (a circle of look-at cameras
-around the sphere). The KeypointNeRF and NOVEL schemas wait for those
-models.
+``data/synthetic.py``, with the camera sweep of validation (a circle of
+look-at cameras around the sphere). ``model`` selects the batch schema:
+
+  - DINER (default): images, depths and cameras;
+  - NOVEL: + the gen camera, ``target_vertices`` (``n_vertices`` points on
+    the sphere's surface) and zero expression offsets (a same-expression
+    pair);
+  - NOVEL_PE: NOVEL + smooth 3-channel positional-encoding maps.
+
+The KeypointNeRF schema waits for that model.
 """
 
 from __future__ import annotations
@@ -17,21 +23,26 @@ from diner_tpu_torch.data.synthetic import _look_at, make_sphere_scene
 znear = 0.8
 zfar = 2.4
 
+_RADIUS = 0.5  # synthetic.py _render_sphere default
+MODELS = ("DINER", "NOVEL", "NOVEL_PE")
+
 
 class SphereDataset:
     znear = 0.8
     zfar = 2.4
 
     def __init__(self, stage: str = "train", n: int = 64, H: int = 32,
-                 W: int = 32, nv: int = 2, model: str = "DINER", **_):
-        if model != "DINER":
+                 W: int = 32, nv: int = 2, model: str = "DINER",
+                 n_vertices: int = 128, **_):
+        if model not in MODELS:
             raise NotImplementedError(
                 f"SphereDataset: the {model} schema is not yet ported "
-                "(only DINER)")
+                f"(only {', '.join(MODELS)})")
         self.stage = stage
         self.n = n
         self.H, self.W, self.nv = H, W, nv
         self.model = model
+        self.n_vertices = n_vertices
         self._angles = np.linspace(0.1, 2 * np.pi - 0.1, n) + \
             (0.05 if stage == "val" else 0.0)
 
@@ -45,7 +56,39 @@ class SphereDataset:
         sample["sample_name"] = f"sphere-{self.stage}-{idx:04d}"
         sample.pop("znear")
         sample.pop("zfar")
+        if self.model in ("NOVEL", "NOVEL_PE"):
+            seed = idx + (100_000 if self.stage == "val" else 0)
+            sample["gen_extrinsics"] = _look_at(
+                np.array([0.0, 0.35, -1.6])).astype(np.float32)
+            sample["gen_intrinsics"] = sample["target_intrinsics"]
+            verts = self._surface_points(self.n_vertices, seed)
+            sample["target_vertices"] = verts
+            sample["offset_target_to_source"] = np.zeros_like(verts)
+            sample["offset_target_to_gen"] = np.zeros_like(verts)
+            if self.model == "NOVEL_PE":
+                sample["src_pos_encodings"] = np.stack(
+                    [self._pe_map(self.H, self.W, 0.5 * v)
+                     for v in range(self.nv)])
+                sample["target_pos_encoding"] = self._pe_map(
+                    self.H, self.W, float(self._angles[idx]))
         return sample
+
+    @staticmethod
+    def _surface_points(n: int, seed: int) -> np.ndarray:
+        rng = np.random.RandomState(seed)
+        d = rng.randn(n, 3)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return (_RADIUS * d).astype(np.float32)
+
+    @staticmethod
+    def _pe_map(H: int, W: int, phase: float) -> np.ndarray:
+        """A smooth deterministic 3-channel PE stamp (the reference loads
+        NOVEL_PE's maps from disk; any fixed smooth signal drives the same
+        lookup)."""
+        y, x = np.meshgrid(np.linspace(-1, 1, H), np.linspace(-1, 1, W),
+                           indexing="ij")
+        return np.stack([np.sin(3 * x + phase), np.cos(3 * y - phase),
+                         np.sin(2 * (x + y))], -1).astype(np.float32)
 
     def get_cam_sweep_extrinsics(self, nframes: int, scan_idx=None, **_):
         """(nframes, 4, 4) world-to-camera extrinsics on a circle of radius

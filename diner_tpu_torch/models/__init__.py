@@ -1,1 +1,2 @@
-"""The conditioned field (PixelNeRF) and its encoded scene context."""
+"""The conditioned field (PixelNeRF), its encoded scene context, and the
+NOVEL / NOVEL_PE variants (``models/novel/``)."""

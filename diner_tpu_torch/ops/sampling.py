@@ -109,10 +109,13 @@ def sample_view_maps_fused(views: ViewMaps, uv_ndc, pad_size: int = 100,
 
 
 def surface_likelihood(rays, views: ViewMaps, z_cand,
-                       depth_diff_max: float = 0.05, n_bins=None):
+                       depth_diff_max: float = 0.05, deform_fn=None,
+                       n_bins=None):
     """Per-candidate surface likelihood, max-fused over views, and its
     occlusion-aware (transmittance-weighted) variant; both (SB, NR, K).
 
+    deform_fn: None, or a map of the (SB, NR·K, 3) candidate points before
+    they are projected (NOVEL's target → observation mesh deformation).
     n_bins: bin count of the erf integration width ``(far-near)/n_bins``;
     defaults to K.
     """
@@ -120,7 +123,10 @@ def surface_likelihood(rays, views: ViewMaps, z_cand,
     step_size = (rays[..., 7] - rays[..., 6]) / (n_bins or K)  # (SB, NR)
 
     xyz = rays[..., None, :3] + z_cand[..., None] * rays[..., None, 3:6]
-    xyz_cam = world_to_cam(xyz.reshape(SB, NR * K, 3), views.poses)
+    xyz = xyz.reshape(SB, NR * K, 3)
+    if deform_fn is not None:
+        xyz = deform_fn(xyz)
+    xyz_cam = world_to_cam(xyz, views.poses)
     dirs_cam = rotate_to_cam(rays[..., 3:6], views.poses)  # (SB, NV, NR, 3)
 
     uv = uv_to_ndc(project_points(xyz_cam, views.focal, views.c),
@@ -176,13 +182,15 @@ def top_k_stable(x, k: int):
 @torch.no_grad()
 def sample_depthguided(rays, views: ViewMaps, n_samples: int,
                        n_candidates: int, u_coarse, gauss_noise=None,
-                       n_gaussian: int = 0, depth_diff_max: float = 0.05):
+                       n_gaussian: int = 0, depth_diff_max: float = 0.05,
+                       deform_fn=None):
     """Shortlist candidate z values by surface likelihood.
 
     Args:
       rays: (SB, NR, 8); views: ViewMaps.
       u_coarse: (SB, NR, n_candidates) uniforms for the jitter.
       gauss_noise: (SB, NR, n_gaussian) standard normals (if n_gaussian).
+      deform_fn: see :func:`surface_likelihood`.
 
     Returns:
       (SB, NR, n_samples) z; zero marks an empty slot for
@@ -191,7 +199,8 @@ def sample_depthguided(rays, views: ViewMaps, n_samples: int,
     if n_samples < n_gaussian:
         raise ValueError(f"n_gaussian={n_gaussian} > n_samples={n_samples}")
     z_cand = stratified_z(rays, n_candidates, u_coarse)
-    lik, opaque = surface_likelihood(rays, views, z_cand, depth_diff_max)
+    lik, opaque = surface_likelihood(rays, views, z_cand, depth_diff_max,
+                                     deform_fn)
 
     top_vals, top_idx = top_k_stable(lik, n_samples)
     z_sel = torch.gather(z_cand, -1, top_idx)
@@ -229,7 +238,7 @@ def sample_depthguided_pruned(rays, views: ViewMaps, n_samples: int,
                               n_candidates: int, n_coarse: int,
                               n_refine_bins: int, u_coarse, gauss_noise=None,
                               n_gaussian: int = 0,
-                              depth_diff_max: float = 0.05):
+                              depth_diff_max: float = 0.05, deform_fn=None):
     """Two-stage (coarse → refine) shortlist: score ``n_coarse`` stratified
     bins, keep the ``n_refine_bins`` most likely after a radius-1 max
     dilation, and score only the fine-grid candidates inside them
@@ -240,8 +249,8 @@ def sample_depthguided_pruned(rays, views: ViewMaps, n_samples: int,
     The fine candidates are the one-stage sampler's own grid points with
     its own jitter: ``u_coarse[..., ::r]`` drives the coarse pass and the
     fine pass takes each slot's uniform from ``u_coarse``. The Gaussian fit
-    uses the coarse occlusion-aware profile. Shapes and returns as
-    :func:`sample_depthguided`.
+    uses the coarse occlusion-aware profile. Shapes, ``deform_fn`` and
+    returns as :func:`sample_depthguided`.
     """
     r = check_pruned(n_samples, n_candidates, n_coarse, n_refine_bins,
                      n_gaussian)
@@ -252,7 +261,7 @@ def sample_depthguided_pruned(rays, views: ViewMaps, n_samples: int,
     # stage A: coarse stratified scoring
     z_coarse = stratified_z(rays, n_coarse, u_coarse[..., ::r])
     lik_c, opaque_c = surface_likelihood(rays, views, z_coarse,
-                                         depth_diff_max)
+                                         depth_diff_max, deform_fn)
 
     # stage B: the fine grid inside the top coarse bins. The dilation ranks
     # band-adjacent bins above far-away zero bins (a band-edge coarse bin
@@ -269,7 +278,7 @@ def sample_depthguided_pruned(rays, views: ViewMaps, n_samples: int,
     fine_step = (far - near) / n_candidates
     z_fine = near + (fine_idx.to(rays.dtype) + u_fine) * fine_step
     lik_f, _ = surface_likelihood(rays, views, z_fine, depth_diff_max,
-                                  n_bins=n_candidates)
+                                  deform_fn, n_bins=n_candidates)
 
     top_vals, top_idx = top_k_stable(lik_f, n_samples)
     z_sel = torch.gather(z_fine, -1, top_idx)

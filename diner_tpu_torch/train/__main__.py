@@ -2,14 +2,16 @@
 
 Usage (from the repository root):
 
-    python -m diner_tpu_torch.train <config.yaml> [DINER] [--max-steps N]
-        [--num-workers N] [--device cuda|cpu] [--debug-nans]
+    python -m diner_tpu_torch.train <config.yaml> [DINER|NOVEL|NOVEL_PE]
+        [--max-steps N] [--num-workers N] [--device cuda|cpu] [--debug-nans]
 
-It runs on ``cuda`` unless ``--device cpu`` is given. ``--debug-nans``
-trains under ``torch.autograd.set_detect_anomaly``: the backward raises at
-the first op that returns NaN and names the forward op that made it (the
-JAX CLI's ``jax_debug_nans``). KeypointNeRF and NOVEL are not yet ported
-and exit with an error that says so.
+It runs on ``cuda`` unless ``--device cpu`` is given. DINER trains with
+the trainer loop (``train/loop.py``); NOVEL and NOVEL_PE with
+``models/novel/train.py:fit_novel``, as ``scripts/train.py`` does.
+``--debug-nans`` trains under ``torch.autograd.set_detect_anomaly``: the
+backward raises at the first op that returns NaN and names the forward op
+that made it (the JAX CLI's ``jax_debug_nans``). KeypointNeRF is not yet
+ported and exits with an error that says so.
 """
 
 from __future__ import annotations
@@ -29,20 +31,27 @@ def main(argv=None):
                     help="autograd anomaly detection: error at the first "
                          "NaN-producing op of a backward")
     args = ap.parse_args(argv)
-    if args.model != "DINER":
+    if args.model == "KeypointNeRF":
         ap.exit(2, f"{ap.prog}: {args.model} is not yet ported to "
-                "diner_tpu_torch (only DINER)\n")
+                "diner_tpu_torch (only DINER, NOVEL and NOVEL_PE)\n")
 
     import torch
 
+    from diner_tpu_torch.device import resolve_device
     from diner_tpu_torch.train.config import load_train_config
-    from diner_tpu_torch.train.loop import Trainer
 
+    device = resolve_device(args.device)
     run_cfg = load_train_config(args.config, model_name=args.model)
-    trainer = Trainer(run_cfg, num_workers=args.num_workers,
-                      device=args.device)
     with torch.autograd.set_detect_anomaly(args.debug_nans):
-        trainer.fit(max_steps=args.max_steps)
+        if args.model == "DINER":
+            from diner_tpu_torch.train.loop import Trainer
+            Trainer(run_cfg, num_workers=args.num_workers,
+                    device=device).fit(max_steps=args.max_steps)
+        else:
+            from diner_tpu_torch.models.novel.train import fit_novel
+            fit_novel(run_cfg, max_steps=args.max_steps,
+                      use_pe=args.model == "NOVEL_PE", device=device,
+                      num_workers=args.num_workers)
 
 
 if __name__ == "__main__":

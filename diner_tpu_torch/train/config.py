@@ -6,9 +6,9 @@ checkpointing) into the port's ``DinerConfig`` with the same defaults and
 the same znear / zfar rules. The dataset registry is keyed by both the
 port's names and the reference's module paths
 (``src/util/import_helper.py:16-24``). It registers what the port has,
-``dtu`` and ``synthetic_sphere``; the JAX package's other datasets raise a
-``KeyError`` that names them as not yet ported. ``build_renderer_config``
-also reads ``composite_impl``.
+``dtu``, ``facescape``, ``facescape_novel``, ``facescape_regressor`` and
+``synthetic_sphere``; MultiFace raises a ``KeyError`` that names it as not
+yet ported. ``build_renderer_config`` also reads ``composite_impl``.
 """
 
 from __future__ import annotations
@@ -44,6 +44,28 @@ def _build_dtu(stage: str, model: str = "DINER", **kwargs):
     return DTUDataset(stage=stage, **kwargs)
 
 
+@register_dataset("facescape", "src.data.facescape.FacescapeDataSet")
+def _build_facescape(stage: str, model: str = "DINER", **kwargs):
+    from diner_tpu_torch.data.facescape import FacescapeDataset
+    return FacescapeDataset(stage=stage, model=model, **kwargs)
+
+
+@register_dataset("facescape_novel",
+                  "src.data.facescape_novel.FacescapeDataSet")
+def _build_facescape_novel(stage: str, model: str = "NOVEL", **kwargs):
+    from diner_tpu_torch.data.facescape_novel import FacescapeNovelDataset
+    return FacescapeNovelDataset(stage=stage, model=model, **kwargs)
+
+
+@register_dataset("facescape_regressor",
+                  "src.data.facescape_regressor.FacescapeDataSet")
+def _build_facescape_regressor(stage: str, model: str = "DINER", **kwargs):
+    # one schema for every model
+    from diner_tpu_torch.data.facescape_regressor import (
+        FacescapeRegressorDataset)
+    return FacescapeRegressorDataset(stage=stage, **kwargs)
+
+
 @register_dataset("synthetic_sphere")
 def _build_synth(stage: str, model: str = "DINER", **kwargs):
     from diner_tpu_torch.data.synthetic_dataset import SphereDataset
@@ -51,12 +73,7 @@ def _build_synth(stage: str, model: str = "DINER", **kwargs):
 
 
 # the JAX package's datasets that the port does not have yet
-NOT_YET_PORTED = {
-    "facescape", "src.data.facescape.FacescapeDataSet",
-    "multiface", "src.data.multiface.MultiFaceDataset",
-    "facescape_novel", "src.data.facescape_novel.FacescapeDataSet",
-    "facescape_regressor", "src.data.facescape_regressor.FacescapeDataSet",
-}
+NOT_YET_PORTED = {"multiface", "src.data.multiface.MultiFaceDataset"}
 
 
 def build_dataset(conf: dict, stage: str, model: str = "DINER"):

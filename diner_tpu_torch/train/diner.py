@@ -167,27 +167,43 @@ def compute_losses(model: PixelNeRF, cfg: DinerConfig, b, vgg=None,
     ``(u_coarse, gauss, u_fill)``) are drawn from ``generator`` when not
     given, in that order. ``update_stats`` moves the BN running statistics.
     """
-    target = b["target_rgb"]
-    SB, H, W, _ = target.shape
     ctx = model.encode(*(b[k] for k in SRC_KEYS), train=True,
                        update_stats=update_stats)
+    rays_sel, gt = select_rays(cfg, b, generator, pix_idcs)
+    out = render_rays(model.field, ctx, rays_sel, cfg.renderer, noise=noise,
+                      generator=generator)
+    return rgb_losses(cfg, out.rgb, gt, vgg, vgg_dtype=model.dtype)
+
+
+def select_rays(cfg: DinerConfig, b, generator=None, pix_idcs=None):
+    """The step's target rays (SB, rays_per_step, 8) and their ground-truth
+    colours (SB, rays_per_step, 3); ``pix_idcs`` drawn from ``generator``
+    when not given."""
+    target = b["target_rgb"]
+    SB, H, W, _ = target.shape
     rays = target_rays(cfg, b, H, W)
     if pix_idcs is None:
         pix_idcs = select_pixels(cfg, b, generator)
     rays_sel = torch.gather(rays, 1, pix_idcs[..., None].expand(-1, -1, 8))
     gt = torch.gather(target.reshape(SB, H * W, 3), 1,
                       pix_idcs[..., None].expand(-1, -1, 3))
-    out = render_rays(model.field, ctx, rays_sel, cfg.renderer, noise=noise,
-                      generator=generator)
+    return rays_sel, gt
 
-    loss_rgb = mse_loss(out.rgb, gt)
+
+def rgb_losses(cfg: DinerConfig, rgb, gt, vgg=None,
+               vgg_dtype=torch.float32):
+    """MSE, and with ``w_vgg`` the VGG19 and antibias losses on the
+    ``vgg_spatch``² patch (``diner.py:177-203``) → (total, metrics);
+    ``vgg_dtype`` is the VGG convolutions' compute dtype."""
+    SB = rgb.shape[0]
+    loss_rgb = mse_loss(rgb, gt)
     total = loss_rgb
     metrics = {"rgb_fine": loss_rgb}
     if cfg.w_vgg > 0:
         s = cfg.vgg_spatch
-        pred_img = out.rgb.reshape(SB, s, s, 3)
+        pred_img = rgb.reshape(SB, s, s, 3)
         gt_img = gt.reshape(SB, s, s, 3)
-        loss_vgg = vgg_loss(vgg, pred_img, gt_img, dtype=model.dtype)
+        loss_vgg = vgg_loss(vgg, pred_img, gt_img, dtype=vgg_dtype)
         total = total + cfg.w_vgg * loss_vgg
         metrics["vgg_fine"] = loss_vgg
         if cfg.w_antibias > 0:
@@ -206,8 +222,10 @@ class TrainStep:
     Holds ``optimizer``, an Adam over every parameter of the model (the
     running statistics are buffers, outside it), and ``step``, the count
     of steps taken. After a call each parameter's ``.grad`` holds the
-    step's gradient.
+    step's gradient. ``loss_fn`` is the step's forward and losses.
     """
+
+    loss_fn = staticmethod(compute_losses)
 
     def __init__(self, model: PixelNeRF, cfg: DinerConfig, vgg=None):
         if cfg.w_vgg > 0 and vgg is None:
@@ -223,9 +241,9 @@ class TrainStep:
         if pix_idcs is not None:
             pix_idcs = torch.as_tensor(pix_idcs).to(dev)
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = compute_losses(self.model, self.cfg, b, self.vgg,
-                                        generator, noise, pix_idcs,
-                                        update_stats=True)
+        total, metrics = self.loss_fn(self.model, self.cfg, b, self.vgg,
+                                      generator, noise, pix_idcs,
+                                      update_stats=True)
         total.backward()
         for p in self.model.parameters():
             if p.grad is None:  # optax steps every parameter, zero or not

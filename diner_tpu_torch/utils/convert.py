@@ -12,6 +12,10 @@ flax names, so a path maps to a dotted key 1:1:
   ``bias`` → ``bias``; BN ``scale`` → ``weight``
   batch_stats ``mean`` / ``var`` → ``running_mean`` / ``running_var``
 
+``novel_flax_to_state_dict`` and ``regressor_flax_to_state_dict`` do the
+same for NOVEL / NOVEL_PE (the gen-latent plane and the deformation layer
+besides) and for the dense keypoint regressor.
+
 ``lpips_to_state_dict`` bridges the LPIPS parameters of
 ``diner_tpu/evaluation/metrics.py`` (``{"vgg": conv tree, "lins": (C,)
 weights per tap}``, e.g. its ``init_lpips_proxy``) to the port's
@@ -71,6 +75,30 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (leaves[path[-1]],))
             sd[key] = torch.tensor(value, dtype=torch.float32)
     return sd
+
+
+def novel_flax_to_state_dict(variables: Mapping
+                             ) -> Dict[str, torch.Tensor]:
+    """A NovelPixelNeRF's flax variables → the port's state_dict: what
+    :func:`flax_to_state_dict` maps, plus the gen-latent plane (a bare
+    (H, W, C) parameter, channels-last in both packages) and, for NOVEL_PE,
+    ``deformation_layer`` (a dense layer)."""
+    params = dict(variables["params"])
+    plane = params.pop("gen_latent")
+    sd = flax_to_state_dict({**variables, "params": params})
+    sd["gen_latent"] = torch.tensor(np.asarray(plane), dtype=torch.float32)
+    return sd
+
+
+def regressor_flax_to_state_dict(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """A DenseRegressor's flax variables (``backbone`` ResNet, ``head``
+    dense layer, BN statistics) → the port's ``DenseRegressor``
+    state_dict."""
+    unknown = sorted(set(variables["params"]) - {"backbone", "head"})
+    if unknown:
+        raise KeyError(f"unknown regressor parameters {unknown}")
+    return flax_to_state_dict(variables)
 
 
 def lpips_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:

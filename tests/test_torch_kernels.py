@@ -1,4 +1,5 @@
-"""Kernels A, B and C as designed for Hopper: kernel C's regime planner and
+"""Kernels A, B and C as designed for Hopper, the DCN backward and the
+top-1 kNN: kernel C's regime planner and
 the build plan (on the CPU), and the kernels against their plain versions
 at the edges of their designs (tests marked ``cuda``, which skip without a
 card; ``chip_smoke.py`` runs the same cases in its ``kernel``,
@@ -18,6 +19,11 @@ chunk) on ``chip_smoke.COMPOSITE_BWD_CASES`` (K around one and two chunks,
 on both sides of the register path's K <= 64, R = 4096 and 4097, and the
 train loop's 8192 x 40), white or not, with only g_rgb or with g_depth and
 g_w, strided or contiguous rgb, with samples at alpha ~ 1 or without.
+The top-1 kNN must return its plain version's indices exactly (both
+compute |v|² − 2·p·v with the same roundings): N and V no multiples of the
+block or the tile, V = 1, duplicated vertices (the first copy), exact
+ties, two scenes with different vertex sets, strided points, N = 0
+(``chip_smoke.knn_edge_cases``, which ``kernel_knn`` runs too).
 """
 
 import numpy as np
@@ -25,7 +31,7 @@ import pytest
 import torch
 
 from chip_smoke import (COMPOSITE_BWD_CASES, composite_bwd_case,
-                        gather_edge_tables)
+                        gather_edge_tables, knn_edge_cases)
 from diner_tpu_torch.ops import composite as plain
 from diner_tpu_torch.ops import composite_cuda, cuda_build, gather_cuda
 
@@ -236,3 +242,20 @@ def test_dcn_sample_bwd_kernel_edges(cuda, W, C, dtype, with_scale):
         err = (a - b).abs().max() / b.abs().max()
         assert err <= DCN_BWD_TOL, (i, float(err))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(knn_edge_cases("cpu")))
+def test_knn1_kernel_edges(cuda, case):
+    from diner_tpu_torch.ops import knn_cuda
+    points, verts, expected = knn_edge_cases(cuda)[case]
+    before = knn_cuda.launches
+    got = knn_cuda.knn1_kernel(points, verts)
+    torch.cuda.synchronize()
+    assert knn_cuda.launches == before + (points.shape[1] > 0)
+    assert got.dtype == torch.int32 and got.shape == points.shape[:2]
+    assert torch.equal(got, knn_cuda.knn1_plain(points, verts))
+    if expected is not None:
+        assert torch.equal(got, expected)
+    if case == "duplicates":  # the first of two copies
+        assert int(got.max()) < verts.shape[1] // 2

@@ -93,7 +93,7 @@ def test_dataset_registry():
                             "kwargs": {"n": 3, "H": 8, "W": 8}}, "val")
     assert len(sphere) == 3 and sphere.stage == "val"
     with pytest.raises(KeyError, match="not yet ported"):
-        build_dataset({"module": "src.data.facescape.FacescapeDataSet"},
+        build_dataset({"module": "src.data.multiface.MultiFaceDataset"},
                       "train")
     with pytest.raises(KeyError, match="unknown dataset"):
         build_dataset({"module": "nope"}, "train")
@@ -182,7 +182,7 @@ def test_trainer_fit_checkpoint_resume_validate(tmp_path, monkeypatch):
 
 def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
     """``python -m diner_tpu_torch.train`` without TensorBoard installed
-    (JSONL only); KeypointNeRF and NOVEL are refused."""
+    (JSONL only); KeypointNeRF is refused."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     cfgp = _cfg(tmp_path)
     train_main([str(cfgp), "DINER", "--max-steps", "2", "--num-workers",
@@ -191,10 +191,9 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
     assert ckpt_lib.load_state(run_dir / "checkpoints" /
                                "step_00000002")["step"] == 2
     assert not list((run_dir / "logs").glob("events.*"))
-    for model in ("KeypointNeRF", "NOVEL"):
-        with pytest.raises(SystemExit) as e:
-            train_main([str(cfgp), model, "--device", "cpu"])
-        assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        train_main([str(cfgp), "KeypointNeRF", "--device", "cpu"])
+    assert e.value.code == 2
 
 
 def test_metric_logger_writes_jsonl_and_tensorboard(tmp_path):

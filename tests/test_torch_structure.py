@@ -44,7 +44,11 @@ def test_import_pulls_in_no_jax():
               "mvs.eval_datasets", "mvs.predict", "mvs.evaluate",
               "fusion.consistency", "fusion.fusion", "data.dtu_fixture",
               "mvs.loss", "mvs.train", "mvs.facescape_dataset",
-              "ops.dcn_cuda", "utils.profiling"):
+              "ops.dcn_cuda", "utils.profiling", "ops.knn", "ops.knn_cuda",
+              "models.novel.model", "models.novel.renderer",
+              "models.novel.train", "models.novel.regressor",
+              "data.facescape", "data.facescape_novel",
+              "data.facescape_regressor"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -105,6 +109,18 @@ def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
         Trainer(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main([str(ROOT / "configs" / "train_synthetic.yaml")])
+    for model in ("NOVEL", "NOVEL_PE"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_main([str(ROOT / "configs" / "train_novel_facescape.yaml"),
+                        model])
+    from diner_tpu_torch.models.novel.regressor import (
+        DenseRegressorConfig, create_regressor_state)
+    from diner_tpu_torch.models.novel.train import (NovelConfig,
+                                                    create_novel_state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_novel_state(NovelConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_regressor_state(DenseRegressorConfig(num_point=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_lpips_proxy()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -149,7 +165,8 @@ def test_mvs_entry_points_default_to_cuda(monkeypatch, tmp_path):
 
 def test_kernel_build_goes_to_ignored_build_dir():
     assert sorted(cuda_build.SOURCES) == ["composite_bwd", "composite_fwd",
-                                          "dcn_sample_bwd", "row_gather"]
+                                          "dcn_sample_bwd", "knn1",
+                                          "row_gather"]
     for name, src in cuda_build.SOURCES.items():
         path = cuda_build.library_path(name)
         assert path.parent == ROOT / "build" / "kernels"
