@@ -40,7 +40,7 @@ set to 0 just before each and read just after:
   same steps on the CPU.
 - inference (``predict``): ``python -m diner_tpu_torch.predict`` on
   ``configs/evaluate_diner_on_dtu.yaml`` with ``data`` replaced by the
-  sphere at 512×640 (its full width, f32) renders and scores 4 validation
+  sphere at 512×640 (its full width, f32) renders and scores 3 validation
   images from a reference Lightning ``.ckpt``, at 64 samples and with
   ``--nsamples 32``; ``python -m diner_tpu_torch.evaluate`` re-scores the
   first folder and ``compare_evaluations`` compares both. Checks: the
@@ -72,7 +72,7 @@ set to 0 just before each and read just after:
 - TransMVSNet training (``mvs_train``): ``python -m diner_tpu_torch.mvs
   --mode train`` in subprocesses at the CLI's defaults (512×640, 4 views,
   48/32/8, 192 hypotheses, batch 1) on the fixture's scan: f32 and bf16
-  for 10 steps, autograd of the DCN gathers for 3, ``--remat`` full and
+  for 6 steps, autograd of the DCN gathers for 3, ``--remat`` full and
   selective for 1, a second process resuming the f32 run for 2; then
   ``write_prediction`` from the trained checkpoint and ``--mode profile``;
   one warm step under the profiler (``mvs_train_profile``), and one small
@@ -94,6 +94,22 @@ set to 0 just before each and read just after:
   per step (A 1, B 1, C 13 / 21, DCN 0, kNN 3) and per image (A 16, C
   208, kNN 48), each peak within 0.95 of the card, the loss and every
   gradient card vs CPU.
+- KeypointNeRF (``keypointnerf_*``, after the NOVEL phases):
+  ``configs/train_keypointnerf_facescape.yaml``'s model at its full width
+  (HGFilterV2 of 64 channels, 1 stack, 4 downsamples; the ResBlk texture
+  encoder at ngf 64, 3 down, 4 blocks, 2 up, 8 channels; 68 keypoints;
+  a 64×64 patch, 64 + 64 samples; L1 1.0 coarse, 10.0 fine, 0.5 VGG19;
+  Adam at 1e-4; f32) on the sphere at FaceScape's shape (256×256, 2
+  source views): ``python -m diner_tpu_torch.train <yaml> KeypointNeRF``
+  takes 3 steps in a subprocess, then 5 warm steps in this process and
+  one under the profiler; the trained model renders one 256×256 image
+  with ``render_full_image`` (16 calls of 16 strided tiles); one small
+  step on the card against the CPU. Checks: the CLI's checkpoint, finite
+  losses and gradients, kernel C 40 times per step and 640 per image (4
+  corners of 5 bilinear samples in each of 2 passes) and no other kernel,
+  each peak within 0.95 of the card, the loss and every gradient card vs
+  CPU. ``kernel_gather`` holds kernel C at the fine pass's tables (C = 1,
+  3, 8, 64 f32; 1,048,576 rows) beside ``index_select``.
 - the training entry point (``train_loop``): ``configs/train_dtu.yaml``
   through the port's ``load_train_config`` with ``data`` replaced by the
   sphere at 512×640 (4 views, the config's 4 scenes a step, f32) and a
@@ -1377,7 +1393,7 @@ def sweep_files(sweep_dir):
 
 
 PREDICT_DIR = OUT_DIR / "predict"
-PREDICT_N = 4  # validation images per prediction folder: 3 warm ones
+PREDICT_N = 3  # validation images per prediction folder: 2 warm ones
 
 
 def sphere_data(n_train, n_val, batch_size):
@@ -1797,6 +1813,19 @@ GATHER_CASES = (
      4 * 4096 * 64),
     ("lab_proxy_c128_f32", 4 * 512 * 640, 128, torch.float32, 512_000),
 )
+# KeypointNeRF's fine pass at configs/train_keypointnerf_facescape.yaml's
+# width: 4,096 rays × 128 samples in 2 views per corner gather, from the
+# source masks and images (256×256), the geometry encoder's full-resolution
+# (128×128, 8 ch) and coarse (32×32, 64 ch) levels and the texture features
+# (64×64, 8 ch), all f32
+KPN_FINE_P = 2 * 4096 * 128
+KPN_GATHER_CASES = (
+    ("kpn_fine_mask_c1_f32", 2 * 256 * 256, 1, torch.float32, KPN_FINE_P),
+    ("kpn_fine_rgb_c3_f32", 2 * 256 * 256, 3, torch.float32, KPN_FINE_P),
+    ("kpn_fine_geo_hd_c8_f32", 2 * 128 * 128, 8, torch.float32, KPN_FINE_P),
+    ("kpn_fine_tex_c8_f32", 2 * 64 * 64, 8, torch.float32, KPN_FINE_P),
+    ("kpn_fine_geo_c64_f32", 2 * 32 * 32, 64, torch.float32, KPN_FINE_P),
+)
 
 
 def gather_edge_tables(device, seed=0):
@@ -1827,19 +1856,24 @@ def gather_edge_tables(device, seed=0):
 
 def phase_kernel_gather():
     """Kernel C at the path's shapes (uniform random rows, int64 indices
-    as the port builds them; the lab proxy int32 as gather_lab.py), then
-    edge cases at every row width, aligned, unaligned and strided, with
-    int32 and int64 indices: P = 50,001 (no multiple of the rows a thread
-    or warp takes), P = 1, R = 1, and out-of-range indices (clamped).
-    Every case must be exact."""
+    as the port builds them; the lab proxy int32 as gather_lab.py), with
+    the regime and unit ``gather_cuda.plan`` picks for each, then edge
+    cases at every row width, aligned, unaligned and strided, with int32
+    and int64 indices: P = 50,001 (no multiple of the rows a thread or
+    warp takes), P = 1, R = 1, and out-of-range indices (clamped). Every
+    case must be exact."""
     from diner_tpu_torch.ops import gather_cuda
     g = torch.Generator(device="cuda").manual_seed(8)
     rows = []
-    for name, n_rows, C, dtype, P in GATHER_CASES:
+    for name, n_rows, C, dtype, P in GATHER_CASES + KPN_GATHER_CASES:
         table = torch.randn((n_rows, C), generator=g, device="cuda").to(dtype)
         idx = torch.randint(0, n_rows, (P,), generator=g, device="cuda",
                             dtype=torch.int32 if C == 128 else torch.int64)
-        row = dict(case=name, **gather_row(table, idx))
+        row_bytes = C * table.element_size()
+        regime, unit = gather_cuda.plan(row_bytes, row_bytes,
+                                        table.data_ptr(), 0)
+        row = dict(case=name, regime=regime, unit_bytes=unit,
+                   **gather_row(table, idx))
         emit("kernel_gather", name="row_gather", **row)
         check(row["exact"], f"row gather kernel vs plain {row}")
         rows.append(row)
@@ -2607,6 +2641,299 @@ def phases_novel(smi):
     return launches
 
 
+# ------------------------------------------------------------ KeypointNeRF
+
+KPN_CONFIG = ROOT / "configs" / "train_keypointnerf_facescape.yaml"
+KPN_DIR = OUT_DIR / "keypointnerf"
+KPN_N_KPT = 68          # FaceScape's 3-D landmarks (KeypointNeRFConfig)
+KPN_CLI_STEPS = 3
+KPN_WARM_STEPS = 5
+# the small reference's seed: seed 0's draw of ``KPN_SMALL`` has a dead
+# density head, relu(radiance + noise) = 0 at every sample of its batch,
+# and its step passes no gradient at all (the model's init has no reroll,
+# in either package); seed 1's draw is alive
+KPN_SMALL_SEED = 1
+# row gathers of one query pass: 4 corners of each of its 5 bilinear
+# samples (source masks, geometry coarse and full-resolution levels,
+# source images, texture features); a step and a render call run the
+# coarse and the fine pass; the backward is index_add_
+KPN_C_PER_PASS = 20
+KPN_C_PER_STEP = 2 * KPN_C_PER_PASS
+KPN_CALLS_PER_IMAGE = 16  # 256 strided tiles of 16×16, 16 a call
+KPN_RENDERS = 3  # a first image and 2 timed
+# parameters whose gradient is zero but for rounding: the texture
+# encoder's convolution biases before an instance norm; the colour head's
+# last bias, an offset of every view's logit that the view softmax
+# ignores; and, with 2 source views, its ani_al (once the smaller view's
+# exp term is subtracted the two anisotropy weights are 0 and 1 whatever
+# ani_al is). They are held below KPN_ZERO_GRAD_TOL of the step's largest
+# gradient norm instead of to their own norm
+KPN_ZERO_GRAD = re.compile(
+    r"tex_encoder\.(down_\d+|res_\d+_conv[12]|up_\d+|conv_in)\.bias$"
+    r"|mlp_tex\.(out_layer_2\.bias|ani_al)$")
+KPN_ZERO_GRAD_TOL = 1e-4
+KPN_SMALL = dict(n_kpt=8, sp_level=2, geo_out_ch=16, geo_n_downsample=2,
+                 tex_ngf=8, tex_n_blocks=1, mlp_dims1=(0, 32, 32, 24, 16),
+                 mlp_dims2=(32, 16, 16, 2), gcompress_out=8,
+                 ibr_in_channels=16, train_out_h=8, train_out_w=8,
+                 sample_per_ray_c=8, sample_per_ray_f=8, znear=0.8,
+                 zfar=2.4)
+
+
+def kpn_yaml():
+    """``configs/train_keypointnerf_facescape.yaml`` with only ``data``
+    swapped for the sphere at FaceScape's shape (256×256, 2 source views,
+    68 keypoints) and the run written under ``KPN_DIR``; written as JSON
+    (valid YAML) → its path."""
+    from diner_tpu_torch.train.config import load_train_config
+    raw = load_train_config(KPN_CONFIG).raw
+    sphere = {"module": "synthetic_sphere", "kwargs": {
+        "n": 8, "H": NOVEL_HW[0], "W": NOVEL_HW[1], "nv": NOVEL_NV,
+        "n_kpt": KPN_N_KPT}}
+    for stage in ("train", "val"):
+        raw["data"][stage]["dataset"] = sphere
+    raw["logger"]["kwargs"].update(save_dir=str(KPN_DIR / "runs"),
+                                   version="KeypointNeRF")
+    KPN_DIR.mkdir(parents=True, exist_ok=True)
+    path = KPN_DIR / "KeypointNeRF.yaml"
+    path.write_text(json.dumps(raw, indent=1))
+    return path
+
+
+def phase_keypointnerf_train(smi):
+    """KeypointNeRF training at ``configs/train_keypointnerf_facescape
+    .yaml``'s width (``KeypointNeRFConfig``'s defaults) on the sphere at
+    FaceScape's shape: ``python -m diner_tpu_torch.train <yaml>
+    KeypointNeRF --max-steps 3`` in a subprocess (``NOVEL_CLI``, the train
+    CLI under ``counted_cli``), then in this process
+    ``create_keypointnerf_state`` and the train step: 1 warm-up and
+    ``KPN_WARM_STEPS`` timed steps, one step under the profiler. Checks:
+    the CLI's checkpoint and launches, each step's launches (C
+    ``KPN_C_PER_STEP``, no other kernel), finite losses and gradients, the
+    geometry encoder's gradient, moved parameters, both peaks within
+    ``MEMORY_SHARE_LIMIT`` of the card. Returns the train step, a batch and
+    {path: launches}."""
+    from diner_tpu_torch.data.loader import DataLoader
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.models.keypointnerf.train import (
+        build_keypointnerf_run_config, create_keypointnerf_state)
+    from diner_tpu_torch.train import checkpoint as ckpt_lib
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.loop import arrays_of
+    path = kpn_yaml()
+    run_cfg = load_train_config(path, model_name="KeypointNeRF")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    mem_limit = int(MEMORY_SHARE_LIMIT * total_mem)
+    per_step = (0, 0, KPN_C_PER_STEP, 0, 0)
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-c", NOVEL_CLI, str(path), "KeypointNeRF",
+         "--max-steps", str(KPN_CLI_STEPS), "--device", "cuda"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    (KPN_DIR / "cli.log").write_text(cli.stdout + cli.stderr)
+    check(cli.returncode == 0 and NOVEL_TAG in cli.stdout,
+          f"KeypointNeRF CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    res = json.loads(cli.stdout.split(NOVEL_TAG)[-1].splitlines()[0])
+    ckpt = ckpt_lib.latest_checkpoint(run_cfg.run_dir / "checkpoints")
+    saved = ckpt_lib.load_state(ckpt)
+    check(saved["step"] == KPN_CLI_STEPS and all(
+        bool(torch.isfinite(v).all()) for v in saved["model"].values()),
+        f"KeypointNeRF CLI checkpoint {ckpt}: step {saved['step']}")
+    cli_expected = [n * KPN_CLI_STEPS for n in per_step]
+    check(res["launches"] == cli_expected,
+          f"KeypointNeRF CLI launches {res['launches']}, expected "
+          f"{cli_expected}")
+    check(res["peak"] <= mem_limit, f"KeypointNeRF CLI peak {res['peak']} B")
+    del saved
+
+    cfg = build_keypointnerf_run_config(run_cfg)
+    check(cfg.model.n_kpt == KPN_N_KPT and cfg.model.sp_dim == 476,
+          f"KeypointNeRF config {cfg.model}")
+    batch = arrays_of(next(iter(DataLoader(run_cfg.build_dataset("train"),
+                                           1, num_workers=0))))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_keypointnerf_state(cfg, device="cuda",
+                                      vgg=init_vgg19(0, device="cuda"))
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    params0 = {n: p.detach().clone()
+               for n, p in state.model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t1 = time.perf_counter()
+    state(batch, generator=gen)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    grads = {n: p.grad for n, p in state.model.named_parameters()}
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "KeypointNeRF: non-finite gradient in the first step")
+    check(float(grads["geo_encoder.conv1.weight"].abs().max()) > 0,
+          "KeypointNeRF: no gradient reached the geometry encoder")
+    moved = sum(not torch.equal(p.detach(), params0[n])
+                for n, p in state.model.named_parameters())
+    check(moved > 0, "KeypointNeRF: no parameter moved")
+    del params0
+    times, losses, launches = [], [], []
+    for _ in range(KPN_WARM_STEPS):
+        reset_counts()
+        t2 = time.perf_counter()
+        m = state(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t2)
+        launches.append(read_counts())
+        losses.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    check(all(c == per_step for c in launches),
+          f"KeypointNeRF: launches per step {launches}, expected {per_step}")
+    measured = tuple(map(sum, zip(*launches)))
+    check(all(np.isfinite(v) for x in losses for v in x.values())
+          and sorted(losses[0]) == ["e_all", "e_pix_c", "e_pix_l1",
+                                    "e_vgg"], f"KeypointNeRF: {losses}")
+    check(peak <= mem_limit, f"KeypointNeRF: peak {peak} B")
+    s_step = statistics.median(times)
+    R = cfg.model.train_out_h * cfg.model.train_out_w
+    emit("keypointnerf_train", config="KeypointNeRF, configs/"
+         "train_keypointnerf_facescape.yaml (HGFilterV2 64 ch, 1 stack, 4 "
+         "downsamples; ResBlk ngf 64, 3 down, 4 blocks, 2 up, 8 ch; 64x64 "
+         "patch, 64 + 64 samples, L1 1.0 / 10.0 + 0.5 VGG, f32); sphere "
+         f"{NOVEL_HW[0]}x{NOVEL_HW[1]}, {NOVEL_NV} views, {KPN_N_KPT} "
+         "keypoints", nvidia_smi=smi, rays_per_step=R,
+         points_per_step=R * (cfg.model.sample_per_ray_c * 2
+                              + cfg.model.sample_per_ray_f) * NOVEL_NV,
+         cli_steps=KPN_CLI_STEPS, cli_s=t_cli,
+         cli_peak_mem_bytes=res["peak"], cli_launches=res["launches"],
+         model_init_s=t_model, first_step_s=t_first,
+         time_to_first_step_s=t_model + t_first, s_per_step=s_step,
+         s_per_step_all=times, rays_per_s=R / s_step, peak_mem_bytes=peak,
+         memory_limit_bytes=mem_limit, launches_per_step=launches,
+         expected_launches_per_step=per_step, params_moved=moved,
+         losses=losses)
+    profile_once("keypointnerf_train_profile",
+                 lambda: state(batch, generator=gen))
+    return state, batch, {"keypointnerf_train": measured,
+                          "keypointnerf_cli": tuple(res["launches"])}
+
+
+def phase_keypointnerf_render(state, batch):
+    """One 256×256 target through ``render_full_image`` (the encoders once,
+    16 calls of 16 strided 16×16 tiles) with the trained state: a first
+    image, then 2 timed. Checks: finite colour and depth of the right
+    shapes; per image kernel C ``KPN_C_PER_STEP`` times per call and no
+    other kernel."""
+    from diner_tpu_torch.models.keypointnerf.train import render_full_image
+    H, W = NOVEL_HW
+    times, counts = [], []
+    for _ in range(KPN_RENDERS):
+        reset_counts()
+        t0 = time.perf_counter()
+        color, depth = render_full_image(state.model, state.cfg.model, batch)
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+    expected = (0, 0, KPN_C_PER_STEP * KPN_CALLS_PER_IMAGE, 0, 0)
+    check(color.shape == (H, W, 3) and depth.shape == (H, W)
+          and np.isfinite(color).all() and np.isfinite(depth).all(),
+          f"KeypointNeRF render: {color.shape} {depth.shape}, finite "
+          f"{np.isfinite(color).all()} {np.isfinite(depth).all()}")
+    check(all(c == expected for c in counts),
+          f"KeypointNeRF render launches per image {counts}, expected "
+          f"{expected}")
+    emit("keypointnerf_render", image_hw=NOVEL_HW,
+         calls=KPN_CALLS_PER_IMAGE, first_image_s=times[0],
+         s_per_image=statistics.median(times[1:]), s_per_image_all=times,
+         launches_per_image=counts, expected_launches_per_image=expected,
+         color_mean=float(color.mean()), depth_mean=float(depth.mean()))
+    return {"keypointnerf_render": tuple(map(sum, zip(*counts)))}
+
+
+def kpn_grad_errs(got, ref):
+    """:func:`grad_errs` over the gradients that are not rounding noise,
+    and the largest of those that are (``KPN_ZERO_GRAD``), in either
+    result, over the reference's largest gradient norm → (worst, its name,
+    nonzero, worst noise ratio)."""
+    noise = [n for n in ref if KPN_ZERO_GRAD.search(n)]
+    scale = max(float(g.float().norm()) for g in ref.values())
+    worst_noise = max(float(g[n].abs().max()) for g in (got, ref)
+                      for n in noise) / max(scale, 1e-30)
+    kept = {n: g for n, g in ref.items() if n not in noise}
+    return grad_errs(got, kept) + (worst_noise,)
+
+
+def phase_keypointnerf_small_reference():
+    """One small KeypointNeRF step on the card against the same step on
+    the CPU (``KPN_SMALL``: 64×64 sphere, 2 views, 8 keypoints, narrow
+    encoders and MLPs, 8 + 8 samples, an 8×8 patch, L1 + VGG): same
+    weights, VGG, patch centre and draws, f32. The loss is held to 1e-4
+    relative and every gradient to 1e-3 of its norm, as the NOVEL phase
+    holds its step."""
+    import copy
+
+    from diner_tpu_torch.data.synthetic_dataset import SphereDataset
+    from diner_tpu_torch.losses import init_vgg19
+    from diner_tpu_torch.models.keypointnerf.model import (KeypointNeRFConfig,
+                                                           draw_render_noise)
+    from diner_tpu_torch.models.keypointnerf.train import (
+        KeypointNeRFTrainConfig, compute_losses, create_keypointnerf_model,
+        patch_center)
+    from diner_tpu_torch.train.diner import batch_to_device
+    cfg = KeypointNeRFTrainConfig(model=KeypointNeRFConfig(**KPN_SMALL))
+    s = SphereDataset("train", n=4, H=64, W=64, nv=2, model="KeypointNeRF",
+                      n_kpt=8)[1]
+    batch = {k: v[None] for k, v in s.items() if isinstance(v, np.ndarray)}
+    rng = np.random.default_rng(3)
+    batch["src_rgbs"] = np.clip(batch["src_rgbs"] + rng.normal(
+        0, 0.1, batch["src_rgbs"].shape), 0, 1).astype(np.float32)
+    cpu_model = create_keypointnerf_model(cfg.model, seed=KPN_SMALL_SEED,
+                                          device="cpu")
+    cpu_vgg = init_vgg19(0, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    center = patch_center(torch.from_numpy(batch["target_mask"]), g)
+    noise = draw_render_noise(cfg.model, 1, 64, 2, generator=g)
+    res = {}
+    for where, dev in (("cpu", "cpu"), ("card", "cuda")):
+        m = copy.deepcopy(cpu_model).to(dev)
+        reset_counts()
+        total, _ = compute_losses(
+            m, cfg, batch_to_device(batch, dev),
+            copy.deepcopy(cpu_vgg).to(dev), center=center.to(dev),
+            noise=type(noise)(*(x.to(dev) for x in noise)))
+        total.backward()
+        res[where] = (total.item(), grads_of(m), read_counts())
+    expected = (0, 0, KPN_C_PER_STEP, 0, 0)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0),
+          f"KeypointNeRF card step launches {res['card'][2]}, expected "
+          f"{expected}; CPU step {res['cpu'][2]}")
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    worst, name, nonzero, noise_ratio = kpn_grad_errs(res["card"][1],
+                                                      res["cpu"][1])
+    emit("keypointnerf_small_reference", rays=64, loss_card=res["card"][0],
+         loss_cpu=res["cpu"][0], loss_rel_err=loss_err,
+         worst_grad_err_over_norm=worst, worst_param=name,
+         params=len(res["cpu"][1]), params_grad_nonzero=nonzero, tol=1e-3,
+         zero_grad_over_largest_norm=noise_ratio,
+         zero_grad_tol=KPN_ZERO_GRAD_TOL)
+    check(loss_err <= 1e-4 and worst <= 1e-3
+          and noise_ratio <= KPN_ZERO_GRAD_TOL,
+          f"KeypointNeRF card vs CPU step: loss {loss_err}, grad {worst} "
+          f"at {name}, zero-gradient parameters {noise_ratio}")
+
+
+def phases_keypointnerf(smi):
+    """The KeypointNeRF phases in order; their files are deleted after.
+    Returns {path: (A, B, C, DCN backward, kNN) launches}."""
+    state, batch, launches = phase_keypointnerf_train(smi)
+    launches.update(phase_keypointnerf_render(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+    phase_keypointnerf_small_reference()
+    shutil.rmtree(KPN_DIR, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------------ TransMVSNet
 
 MVS_DIR = OUT_DIR / "mvs"
@@ -3242,7 +3569,7 @@ def phase_mvs_small_reference():
 
 
 MVS_TRAIN_DIR = MVS_DIR / "train"
-MVS_TRAIN_STEPS = 10     # the f32 and bf16 runs
+MVS_TRAIN_STEPS = 6      # the f32 and bf16 runs
 MVS_TRAIN_AUTOGRAD_STEPS = 3  # DCN_CUSTOM_VJP = False
 MVS_TRAIN_RESUME_STEPS = 2    # the second process, after the f32 run
 MVS_TRAIN_TAG = "mvs_train_result="
@@ -3683,6 +4010,8 @@ def main():
     torch.cuda.empty_cache()
     novel_l = phases_novel(smi)
     torch.cuda.empty_cache()
+    kpn_l = phases_keypointnerf(smi)
+    torch.cuda.empty_cache()
     mvs_l, mvs_gather_rows = phases_mvs(smi)
     torch.cuda.empty_cache()
     train_loop_l = phase_train_loop()
@@ -3693,7 +4022,7 @@ def main():
              "train_steps_pruned": train_pruned_l,
              "predict": predict_l["nsamples64"],
              "predict_nsamples32": predict_l["nsamples32"],
-             **novel_l, **mvs_l, "train_loop": train_loop_l}
+             **novel_l, **kpn_l, **mvs_l, "train_loop": train_loop_l}
 
     def entry(name, row_list, main, replaces, which, library_ms=None):
         # launches per path: (A, B, C, DCN backward, kNN)
@@ -3749,8 +4078,13 @@ def main():
                    "diner_tpu/ops/pallas/gather_pallas.py:45", 2,
                    library_ms=corner["library_ms"]),
              main_case=corner["case"],
-             cases=[{k: r[k] for k in ("case", "C", "P") + timed}
+             cases=[{k: r[k] for k in ("case", "regime", "unit_bytes", "C",
+                                       "P") + timed}
                     for r in gather_rows if "ms" in r],
+             launches_per_keypointnerf_step=paths["keypointnerf_train"][2]
+             / KPN_WARM_STEPS,
+             launches_per_keypointnerf_image=paths["keypointnerf_render"][2]
+             / KPN_RENDERS,
              path_cases=[{k: r[k] for k in ("config", "call", "kind", "P",
                                             "distinct_rows", "ms_cold_l2",
                                             "library_ms_cold_l2") + timed}

@@ -6,12 +6,13 @@ Port of ``diner_tpu/data/synthetic_dataset.py:SphereDataset`` on the port's
 look-at cameras around the sphere). ``model`` selects the batch schema:
 
   - DINER (default): images, depths and cameras;
+  - KeypointNeRF: + ``src_alphas`` (the sources' foreground),
+    ``target_mask``, ``target_kpt3d`` (``n_kpt`` points on the sphere's
+    surface) and ``bounds`` (the sphere's box, 0.2 wider);
   - NOVEL: + the gen camera, ``target_vertices`` (``n_vertices`` points on
     the sphere's surface) and zero expression offsets (a same-expression
     pair);
   - NOVEL_PE: NOVEL + smooth 3-channel positional-encoding maps.
-
-The KeypointNeRF schema waits for that model.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ znear = 0.8
 zfar = 2.4
 
 _RADIUS = 0.5  # synthetic.py _render_sphere default
-MODELS = ("DINER", "NOVEL", "NOVEL_PE")
+MODELS = ("DINER", "KeypointNeRF", "NOVEL", "NOVEL_PE")
 
 
 class SphereDataset:
@@ -33,15 +34,16 @@ class SphereDataset:
 
     def __init__(self, stage: str = "train", n: int = 64, H: int = 32,
                  W: int = 32, nv: int = 2, model: str = "DINER",
-                 n_vertices: int = 128, **_):
+                 n_kpt: int = 8, n_vertices: int = 128, **_):
         if model not in MODELS:
             raise NotImplementedError(
-                f"SphereDataset: the {model} schema is not yet ported "
-                f"(only {', '.join(MODELS)})")
+                f"SphereDataset: no {model} schema (the schemas are "
+                f"{', '.join(MODELS)})")
         self.stage = stage
         self.n = n
         self.H, self.W, self.nv = H, W, nv
         self.model = model
+        self.n_kpt = n_kpt
         self.n_vertices = n_vertices
         self._angles = np.linspace(0.1, 2 * np.pi - 0.1, n) + \
             (0.05 if stage == "val" else 0.0)
@@ -56,8 +58,16 @@ class SphereDataset:
         sample["sample_name"] = f"sphere-{self.stage}-{idx:04d}"
         sample.pop("znear")
         sample.pop("zfar")
-        if self.model in ("NOVEL", "NOVEL_PE"):
-            seed = idx + (100_000 if self.stage == "val" else 0)
+        seed = idx + (100_000 if self.stage == "val" else 0)
+        if self.model == "KeypointNeRF":
+            sample["src_alphas"] = (
+                sample["src_depths"] > 0).astype(np.float32)
+            sample["target_mask"] = sample["target_alpha"][..., 0]
+            sample["target_kpt3d"] = self._surface_points(self.n_kpt, seed)
+            r = _RADIUS + 0.2
+            sample["bounds"] = np.stack(
+                [np.full(3, -r), np.full(3, r)]).astype(np.float32)
+        elif self.model in ("NOVEL", "NOVEL_PE"):
             sample["gen_extrinsics"] = _look_at(
                 np.array([0.0, 0.35, -1.6])).astype(np.float32)
             sample["gen_intrinsics"] = sample["target_intrinsics"]

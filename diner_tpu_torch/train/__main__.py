@@ -2,16 +2,17 @@
 
 Usage (from the repository root):
 
-    python -m diner_tpu_torch.train <config.yaml> [DINER|NOVEL|NOVEL_PE]
+    python -m diner_tpu_torch.train <config.yaml>
+        [DINER|KeypointNeRF|NOVEL|NOVEL_PE]
         [--max-steps N] [--num-workers N] [--device cuda|cpu] [--debug-nans]
 
 It runs on ``cuda`` unless ``--device cpu`` is given. DINER trains with
-the trainer loop (``train/loop.py``); NOVEL and NOVEL_PE with
+the trainer loop (``train/loop.py``); KeypointNeRF with
+``models/keypointnerf/train.py:fit_keypointnerf``; NOVEL and NOVEL_PE with
 ``models/novel/train.py:fit_novel``, as ``scripts/train.py`` does.
 ``--debug-nans`` trains under ``torch.autograd.set_detect_anomaly``: the
 backward raises at the first op that returns NaN and names the forward op
-that made it (the JAX CLI's ``jax_debug_nans``). KeypointNeRF is not yet
-ported and exits with an error that says so.
+that made it (the JAX CLI's ``jax_debug_nans``).
 """
 
 from __future__ import annotations
@@ -31,9 +32,6 @@ def main(argv=None):
                     help="autograd anomaly detection: error at the first "
                          "NaN-producing op of a backward")
     args = ap.parse_args(argv)
-    if args.model == "KeypointNeRF":
-        ap.exit(2, f"{ap.prog}: {args.model} is not yet ported to "
-                "diner_tpu_torch (only DINER, NOVEL and NOVEL_PE)\n")
 
     import torch
 
@@ -47,6 +45,11 @@ def main(argv=None):
             from diner_tpu_torch.train.loop import Trainer
             Trainer(run_cfg, num_workers=args.num_workers,
                     device=device).fit(max_steps=args.max_steps)
+        elif args.model == "KeypointNeRF":
+            from diner_tpu_torch.models.keypointnerf.train import (
+                fit_keypointnerf)
+            fit_keypointnerf(run_cfg, max_steps=args.max_steps,
+                             device=device, num_workers=args.num_workers)
         else:
             from diner_tpu_torch.models.novel.train import fit_novel
             fit_novel(run_cfg, max_steps=args.max_steps,

@@ -14,7 +14,10 @@ flax names, so a path maps to a dotted key 1:1:
 
 ``novel_flax_to_state_dict`` and ``regressor_flax_to_state_dict`` do the
 same for NOVEL / NOVEL_PE (the gen-latent plane and the deformation layer
-besides) and for the dense keypoint regressor.
+besides) and for the dense keypoint regressor;
+``keypointnerf_flax_to_state_dict`` for KeypointNeRF (GroupNorm scales,
+WNLinear's ``v`` (in, out), ``g`` and ``bias`` as flax keeps them, and
+the colour head's scalar ``ani_al``).
 
 ``lpips_to_state_dict`` bridges the LPIPS parameters of
 ``diner_tpu/evaluation/metrics.py`` (``{"vgg": conv tree, "lins": (C,)
@@ -87,6 +90,30 @@ def novel_flax_to_state_dict(variables: Mapping
     plane = params.pop("gen_latent")
     sd = flax_to_state_dict({**variables, "params": params})
     sd["gen_latent"] = torch.tensor(np.asarray(plane), dtype=torch.float32)
+    return sd
+
+
+def keypointnerf_flax_to_state_dict(variables: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """A KeypointNeRF's flax variables → the port's state_dict: what
+    :func:`flax_to_state_dict` maps (conv kernels HWIO → OIHW, dense
+    kernels, GroupNorm scale / bias), plus the leaves the port keeps in
+    flax's layout, WNLinear's ``v`` (in, out) and ``g``, and ``ani_al``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def split(tree, prefix=()):
+        rest = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                rest[k] = split(v, prefix + (k,))
+            elif k in ("v", "g", "ani_al"):
+                sd[".".join(prefix + (k,))] = torch.tensor(
+                    np.asarray(v), dtype=torch.float32)
+            else:
+                rest[k] = v
+        return rest
+
+    sd.update(flax_to_state_dict({"params": split(variables["params"])}))
     return sd
 
 

@@ -95,8 +95,8 @@ def test_sphere_dataset_matches_jax(stage):
 
 
 def test_sphere_dataset_refuses_other_schemas():
-    with pytest.raises(NotImplementedError, match="KeypointNeRF"):
-        SphereDataset(model="KeypointNeRF")
+    with pytest.raises(NotImplementedError, match="no IBRNet schema"):
+        SphereDataset(model="IBRNet")
 
 
 @pytest.fixture(scope="module")

@@ -182,7 +182,7 @@ def test_trainer_fit_checkpoint_resume_validate(tmp_path, monkeypatch):
 
 def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
     """``python -m diner_tpu_torch.train`` without TensorBoard installed
-    (JSONL only); KeypointNeRF is refused."""
+    (JSONL only); a model it does not know is refused."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     cfgp = _cfg(tmp_path)
     train_main([str(cfgp), "DINER", "--max-steps", "2", "--num-workers",
@@ -192,7 +192,7 @@ def test_cli_trains_on_the_cpu(tmp_path, monkeypatch):
                                "step_00000002")["step"] == 2
     assert not list((run_dir / "logs").glob("events.*"))
     with pytest.raises(SystemExit) as e:
-        train_main([str(cfgp), "KeypointNeRF", "--device", "cpu"])
+        train_main([str(cfgp), "IBRNet", "--device", "cpu"])
     assert e.value.code == 2
 
 

@@ -669,5 +669,5 @@ def test_novel_cli_trains_on_the_cpu(tmp_path, monkeypatch, model):
         assert torch.equal(v, state["model"][k]), k
     assert fresh.optimizer.state_dict()["state"][0]["step"] == 2
     with pytest.raises(SystemExit) as e:
-        train_main([str(p), "KeypointNeRF", "--device", "cpu"])
+        train_main([str(p), "IBRNet", "--device", "cpu"])
     assert e.value.code == 2

@@ -48,7 +48,9 @@ def test_import_pulls_in_no_jax():
               "models.novel.model", "models.novel.renderer",
               "models.novel.train", "models.novel.regressor",
               "data.facescape", "data.facescape_novel",
-              "data.facescape_regressor"):
+              "data.facescape_regressor", "models.keypointnerf.modules",
+              "models.keypointnerf.model", "models.keypointnerf.losses",
+              "models.keypointnerf.train"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -113,6 +115,13 @@ def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_main([str(ROOT / "configs" / "train_novel_facescape.yaml"),
                         model])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main([str(ROOT / "configs" /
+                        "train_keypointnerf_facescape.yaml"), "KeypointNeRF"])
+    from diner_tpu_torch.models.keypointnerf.train import (
+        KeypointNeRFTrainConfig, create_keypointnerf_state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_keypointnerf_state(KeypointNeRFTrainConfig())
     from diner_tpu_torch.models.novel.regressor import (
         DenseRegressorConfig, create_regressor_state)
     from diner_tpu_torch.models.novel.train import (NovelConfig,
