@@ -3,8 +3,10 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout
 (kernel A, the compositing forward; kernel B, its backward; kernel C, the
-row gather; the DCN sampler's backward; NOVEL's top-1 kNN), holds each
-against its plain PyTorch version on the card (the kNN's indices exactly,
+row gather; the DCN sampler's backward; NOVEL's top-1 kNN; kernel R, the
+mesh z-buffer of the preprocessing), holds each against its plain PyTorch
+version on the card (kernel R bit for bit at its edge cases and on a
+50,400-face head mesh at multiface's 2048×1334; the kNN's indices exactly,
 at edge cases, past 2³¹ / 3 point offsets and at the NOVEL step's shapes
 on 26,317 vertices) (the DCN backward at edge positions, odd and
 even W, C = 5 and 32, with and without its scale, f32 and bf16, and at
@@ -110,6 +112,23 @@ set to 0 just before each and read just after:
   each peak within 0.95 of the card, the loss and every gradient card vs
   CPU. ``kernel_gather`` holds kernel C at the fine pass's tables (C = 1,
   3, 8, 64 f32; 1,048,576 rows) beside ``index_select``.
+- preprocessing and multiface (after the KeypointNeRF phases): ``python
+  -m diner_tpu_torch.preprocess_multiface`` at 2048×1334 renders the depth
+  and mask PNGs of a fabricated subject (16 ring cameras in a KRT file, 2
+  tracked frames of the head mesh, mm) through kernel R; ``python -m
+  diner_tpu_torch.predict`` on ``configs/evaluate_diner_on_multiface.yaml``
+  (full width, 4 source views at 256×160) renders and scores 2 images
+  from those PNGs and a seeded Lightning ``.ckpt``; ``python -m
+  diner_tpu_torch.mvs --dataset multiface --mode train`` takes 2 steps at
+  the CLI's defaults on the same subject; ``python -m
+  diner_tpu_torch.preprocess_facescape --crop_out 256`` processes a
+  fabricated raw FaceScape pose (4 views at 2048×1334, a PLY scan) and
+  ``FacescapeDataset`` reads the views back. Checks: R once per map, once
+  per raw view and once per calibrated view; the first PNG equal to
+  ``float32_2_uint16`` of the plain map; masks equal depth ≠ 0; the source
+  depths DINER reads equal the PNGs; C 6 per ray chunk, 5 per calibrated
+  view, 456 and the DCN backward 81 per MVS step; finite scores and
+  losses.
 - the training entry point (``train_loop``): ``configs/train_dtu.yaml``
   through the port's ``load_train_config`` with ``data`` replaced by the
   sphere at 512×640 (4 views, the config's 4 scenes a step, f32) and a
@@ -473,10 +492,10 @@ def phase_path():
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
     launches_first = read_counts()
-    check(launches_first == (n_chunks, 0, 6 * n_chunks, 0, 0),
+    check(launches_first == (n_chunks, 0, 6 * n_chunks, 0, 0, 0),
           f"first render launched kernels A, B, C, the DCN backward and the kNN "
           f"{launches_first} times, expected ({n_chunks}, 0, {6 * n_chunks}"
-          f", 0, 0)")
+          f", 0, 0, 0)")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -487,7 +506,7 @@ def phase_path():
     t_warm = time.perf_counter() - t2
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0),
+    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0, 0),
           f"warm render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {6 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -552,7 +571,7 @@ def phase_path_pairs(ev):
     t_warm = time.perf_counter() - t2
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 4 * n_chunks, 0, 0),
+    check(launches == (n_chunks, 0, 4 * n_chunks, 0, 0, 0),
           f"pair-table render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {4 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -595,7 +614,7 @@ def phase_path_pruned(ev):
     t_warm = time.perf_counter() - t2
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(launches == (n_chunks, 0, 7 * n_chunks, 0, 0),
+    check(launches == (n_chunks, 0, 7 * n_chunks, 0, 0, 0),
           f"pruned render launched kernels A, B and C {launches} times, "
           f"expected ({n_chunks}, 0, {7 * n_chunks})")
     check_image(rgb, depth, H, W)
@@ -864,9 +883,9 @@ def phase_train_path(pruned=False):
                                     for g in grads_of(model).values()))
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(all(c == (1, 1, n_gathers, 0, 0) for c in per_step),
+    check(all(c == (1, 1, n_gathers, 0, 0, 0) for c in per_step),
           f"kernel A, B and C launches per step: {per_step}, expected "
-          f"(1, 1, {n_gathers}, 0, 0)")
+          f"(1, 1, {n_gathers}, 0, 0, 0)")
     check(all(np.isfinite(v) for m in losses for v in m.values()),
           f"non-finite loss: {losses}")
     check(sorted(losses[0]) == ["antibias", "rgb_fine", "total", "vgg_fine"],
@@ -1071,8 +1090,8 @@ def phase_train_small_reference(pruned=False):
         total.backward()
         res[where] = (total.item(), grads_of(m),
                       read_counts())
-    expected = (1, 1, 7 if pruned else 6, 0, 0)
-    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0),
+    expected = (1, 1, 7 if pruned else 6, 0, 0, 0)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0, 0),
           f"card step launches {res['card'][2]}, expected {expected}; "
           f"CPU step {res['cpu'][2]}")
     loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -1260,15 +1279,15 @@ def phase_train_loop():
     check(ts.step == 6, f"resumed fit ended at step {ts.step}, expected 6")
     check([c[0] for c in calls["train"]] == [4, 5],
           f"resumed train steps began at {[c[0] for c in calls['train']]}")
-    check(all(c[1] == (1, 1, 6, 0, 0) for c in calls["train"]),
+    check(all(c[1] == (1, 1, 6, 0, 0, 0) for c in calls["train"]),
           f"kernel A, B, C, DCN backward and kNN launches per train step "
-          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6, 0, 0)")
+          f"{[c[1] for c in calls['train']]}, expected (1, 1, 6, 0, 0, 0)")
     n_sweep = TRAIN_LOOP_SWEEP["nframes"] * TRAIN_LOOP_SWEEP["n_cam_sweeps"]
     check(len(calls["eval"]) == 2 + n_sweep and all(
-        c[1] == (n_chunks, 0, 6 * n_chunks, 0, 0) for c in calls["eval"]),
+        c[1] == (n_chunks, 0, 6 * n_chunks, 0, 0, 0) for c in calls["eval"]),
         f"launches per validation and sweep image "
         f"{[c[1] for c in calls['eval']]}, expected 2 + {n_sweep} times "
-        f"({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
+        f"({n_chunks}, 0, {6 * n_chunks}, 0, 0, 0)")
 
     names = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
     check(names == ["step_00000003", "step_00000004", "step_00000006"],
@@ -1559,9 +1578,9 @@ def phase_predict(smi, build_s):
         check(all(np.isfinite(v) for v in scores.values())
               and "lpips_proxy" in scores, f"{name}: scores {scores}")
         check(len(calls) == PREDICT_N and all(
-            c[0] == (n_chunks, 0, 6 * n_chunks, 0, 0) for c in calls),
+            c[0] == (n_chunks, 0, 6 * n_chunks, 0, 0, 0) for c in calls),
             f"{name}: launches per image {[c[0] for c in calls]}, expected "
-            f"({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
+            f"({n_chunks}, 0, {6 * n_chunks}, 0, 0, 0)")
         ends = [t0] + [c[1] for c in calls]
         warm = [b - a for a, b in zip(ends[1:], ends[2:])]
         results[name] = dict(
@@ -2385,7 +2404,7 @@ def novel_yaml(model):
 
 
 def novel_step_launches(use_pe):
-    return (1, 1, NOVEL_C_PER_STEP[use_pe], 0, NOVEL_KNN_PER_STEP)
+    return (1, 1, NOVEL_C_PER_STEP[use_pe], 0, NOVEL_KNN_PER_STEP, 0)
 
 
 def phase_novel_train(smi, use_pe):
@@ -2547,7 +2566,7 @@ def phase_novel_render(state, batch):
         times.append(time.perf_counter() - t0)
         counts.append(read_counts())
     expected = (n_chunks, 0, NOVEL_C_PER_STEP[False] * n_chunks, 0,
-                NOVEL_KNN_PER_STEP * n_chunks)
+                NOVEL_KNN_PER_STEP * n_chunks, 0)
     check(rgb.shape == (1, H, W, 3) and bool(torch.isfinite(rgb).all())
           and bool(torch.isfinite(depth).all()),
           f"NOVEL render: {rgb.shape}, finite {torch.isfinite(rgb).all()}")
@@ -2611,7 +2630,7 @@ def phase_novel_small_reference(use_pe):
         total.backward()
         res[where] = (total.item(), grads_of(m), read_counts())
     expected = novel_step_launches(use_pe)
-    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0),
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0, 0),
           f"{model} card step launches {res['card'][2]}, expected "
           f"{expected}; CPU step {res['cpu'][2]}")
     loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -2724,7 +2743,7 @@ def phase_keypointnerf_train(smi):
     run_cfg = load_train_config(path, model_name="KeypointNeRF")
     total_mem = torch.cuda.get_device_properties(0).total_memory
     mem_limit = int(MEMORY_SHARE_LIMIT * total_mem)
-    per_step = (0, 0, KPN_C_PER_STEP, 0, 0)
+    per_step = (0, 0, KPN_C_PER_STEP, 0, 0, 0)
 
     import gc
     gc.collect()
@@ -2834,7 +2853,7 @@ def phase_keypointnerf_render(state, batch):
         color, depth = render_full_image(state.model, state.cfg.model, batch)
         times.append(time.perf_counter() - t0)
         counts.append(read_counts())
-    expected = (0, 0, KPN_C_PER_STEP * KPN_CALLS_PER_IMAGE, 0, 0)
+    expected = (0, 0, KPN_C_PER_STEP * KPN_CALLS_PER_IMAGE, 0, 0, 0)
     check(color.shape == (H, W, 3) and depth.shape == (H, W)
           and np.isfinite(color).all() and np.isfinite(depth).all(),
           f"KeypointNeRF render: {color.shape} {depth.shape}, finite "
@@ -2903,8 +2922,8 @@ def phase_keypointnerf_small_reference():
             noise=type(noise)(*(x.to(dev) for x in noise)))
         total.backward()
         res[where] = (total.item(), grads_of(m), read_counts())
-    expected = (0, 0, KPN_C_PER_STEP, 0, 0)
-    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0),
+    expected = (0, 0, KPN_C_PER_STEP, 0, 0, 0)
+    check(res["card"][2] == expected and res["cpu"][2] == (0, 0, 0, 0, 0, 0),
           f"KeypointNeRF card step launches {res['card'][2]}, expected "
           f"{expected}; CPU step {res['cpu'][2]}")
     loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -3046,18 +3065,21 @@ def spy_run_model(records):
 
 def reset_counts():
     from diner_tpu_torch.ops import (composite_cuda, dcn_cuda, gather_cuda,
-                                     knn_cuda)
+                                     knn_cuda, rasterize_cuda)
     composite_cuda.launches = composite_cuda.bwd_launches = 0
     gather_cuda.launches = dcn_cuda.launches = knn_cuda.launches = 0
+    rasterize_cuda.launches = 0
 
 
 def read_counts():
-    """Launches of kernels A, B, C, the DCN sampler's backward and the
-    top-1 kNN."""
+    """Launches of kernels A, B, C, the DCN sampler's backward, the top-1
+    kNN and kernel R (the mesh z-buffer: its setup and raster kernels, two
+    launches a call)."""
     from diner_tpu_torch.ops import (composite_cuda, dcn_cuda, gather_cuda,
-                                     knn_cuda)
+                                     knn_cuda, rasterize_cuda)
     return (composite_cuda.launches, composite_cuda.bwd_launches,
-            gather_cuda.launches, dcn_cuda.launches, knn_cuda.launches)
+            gather_cuda.launches, dcn_cuda.launches, knn_cuda.launches,
+            rasterize_cuda.launches)
 
 
 def map_times(t0, records):
@@ -3187,10 +3209,10 @@ def phase_mvs_write_prediction(smi):
          loaded_bit_for_bit=same, written=len(written), depth_maps=maps)
     check(same, "the loaded TransMVSNet weights are not the checkpoint's")
     check(len(written) == 4 and len(records) == 4, f"{len(written)} maps")
-    check(all(r["launches"] == (0, 0, per_map, 0, 0) for r in records)
-          and launches == (0, 0, 4 * per_map, 0, 0),
+    check(all(r["launches"] == (0, 0, per_map, 0, 0, 0) for r in records)
+          and launches == (0, 0, 4 * per_map, 0, 0, 0),
           f"launches per map {[r['launches'] for r in records]}, expected "
-          f"(0, 0, {per_map}, 0, 0)")
+          f"(0, 0, {per_map}, 0, 0, 0)")
     lsb = DEPTH_PNG_SCALE * predict.DTU_DEPTH_UNSCALE
     for m in maps:
         check(m["shape"] == list(MVS_WRITE_HW) and m["finite"]
@@ -3395,9 +3417,9 @@ def phase_mvs_test(smi):
             ply_properties=names, ply_colors=colors is not None,
             points=res["scan1"]["points"])
         check(len(records) == len(cams) and all(
-            r["launches"] == (0, 0, per_map, 0, 0) for r in records),
+            r["launches"] == (0, 0, per_map, 0, 0, 0) for r in records),
             f"{method}: launches per map {runs[method]['launches_per_map']}, "
-            f"expected (0, 0, {per_map}, 0, 0)")
+            f"expected (0, 0, {per_map}, 0, 0, 0)")
         check(len(pfms) == 2 * len(cams) and runs[method]["pfms_finite"]
               and runs[method]["pfm_shapes"] == [MVS_TEST_HW],
               f"{method}: PFMs {len(pfms)}, shapes "
@@ -3499,7 +3521,7 @@ def phase_mvs_pipeline(wp):
     check(decoded_equal, "DTUDataset's source depths are not the PNGs")
     check(model_err <= 1.001 * DEPTH_PNG_SCALE * DTU_DEPTH_UNSCALE,
           f"source depths {model_err} from the model's maps")
-    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0),
+    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0, 0),
           f"DINER render launched kernels A, B, C, the DCN backward and the kNN "
           f"{launches} times, expected ({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
     check_image(rgb, depth, 512, 640)
@@ -3670,12 +3692,12 @@ def phase_mvs_train(smi):
             time_to_first_step_s=r["step_seconds_from_start"][0],
             wall_s=r["wall_s"], peak_mem_bytes=r["peak"],
             launches=r["launches"],
-            expected_launches_per_step=[0, 0, per_c, per_d, 0])
+            expected_launches_per_step=[0, 0, per_c, per_d, 0, 0])
         check(len(recs) == steps and [x["step"] for x in recs]
               == list(range(1, steps + 1)), f"{name}: steps {recs}")
         check(all(np.isfinite(x["loss"]) for x in recs)
               and runs[name]["skipped"] == 0, f"{name}: {runs[name]}")
-        expected = [0, 0, per_c * steps, per_d * steps, 0]
+        expected = [0, 0, per_c * steps, per_d * steps, 0, 0]
         check(r["launches"] == expected,
               f"{name}: kernel A, B, C, DCN backward and kNN launches "
               f"{r['launches']}, expected {expected}")
@@ -3724,7 +3746,7 @@ def phase_mvs_train(smi):
         ckpt=str(ckpt.relative_to(ROOT)), maps=len(written), cli_s=t_wp,
         launches=wp_launches, finite=maps_finite)
     check(len(written) == 4 and all(maps_finite)
-          and wp_launches == (0, 0, 4 * MVS_C_PER_MAP[views], 0, 0),
+          and wp_launches == (0, 0, 4 * MVS_C_PER_MAP[views], 0, 0, 0),
           f"write_prediction from the trained checkpoint: "
           f"{runs['write_prediction']}")
 
@@ -3922,7 +3944,7 @@ def phase_mvs_train_small_reference():
                           launches_card=got["launches"],
                           launches_cpu=ref["launches"])
         check(got["launches"][2] > 0 and got["launches"][3] == DCN_BWD_PER_STEP
-              and ref["launches"] == (0, 0, 0, 0, 0),
+              and ref["launches"] == (0, 0, 0, 0, 0, 0),
               f"{mode}: launches card {got['launches']}, cpu "
               f"{ref['launches']}")
     emit("mvs_train_small_reference", hw=list(MVS_SMALL_HW), views=3,
@@ -3968,6 +3990,820 @@ def phases_mvs(smi):
              "mvs_pipeline": pipeline_l, **train_l}, gather_rows)
 
 
+# ------------------------------------------------------------------ kernel R
+# and the preprocessing / multiface paths
+
+RASTER_HW = (2048, 1334)  # multiface's frames (scripts/preprocess_multiface.py)
+# operations of one test of a pixel centre inside a face's box (grown by
+# one pixel): d (2), the two cross products (6), b1 and b2 (2 divisions), b0
+# (2) and the inside test (3); a covered pair adds the depth (3 divisions, 2
+# sums, the clamp, 1 division), not counted
+RASTER_OPS_PER_PAIR = 15
+RASTER_TILE = 16          # csrc/rasterize_depth.cu's kTile
+# kernel R's launches per call with F > 0: its setup kernel, then its
+# raster kernel (ops/rasterize_cuda.py)
+RASTER_LAUNCHES_PER_CALL = 2
+HEAD_LAT, HEAD_LON = 126, 200  # 50,400 faces, 25,202 vertices
+MF_DIR = OUT_DIR / "multiface"
+MF_SUBJECT = "m--20200101--0000--0000000--GHS"
+MF_SEQ = "SEQ1"
+MF_FRAMES = ("000000", "000001")  # tracked meshes; images for the first
+MF_CAMS = 16               # tests/test_multiface.py's _ring_cameras(16)
+MF_FOCAL = 100.0 * RASTER_HW[0] / 64  # its K (f 100 at 64 px), scaled
+MF_REF_CENTERS = [[0, 90, 100], [630, 90, 360], [0, 90, 1900],
+                  [-630, 90, 360], [880, 90, 820], [-880, 90, 820]]
+MF_RENDERS = 2             # images multiface_render scores
+MF_MVS_STEPS = 2
+FS_DIR = OUT_DIR / "facescape"
+FS_VIEWS = 4
+FS_CROP = 256
+# kernel C under collect_vertex_colors: 1 nearest and 4 bilinear corner
+# gathers per view (ops/grid_sample.py)
+FS_C_PER_VIEW = 5
+
+
+def head_mesh(frame=0, centre=(0.0, 0.0, 1000.0)):
+    """A closed head-sized mesh in mm: an ellipsoid of radii 80 / 110 / 95
+    with a nose and brow ridge, ``HEAD_LAT`` rings of ``HEAD_LON``
+    vertices and two poles (50,400 faces, consistently wound), turned by
+    3° about y per ``frame`` → (verts (V, 3) f32, faces (F, 3) int32)."""
+    lat = np.pi * (np.arange(1, HEAD_LAT + 1) / (HEAD_LAT + 1))
+    lon = 2 * np.pi * np.arange(HEAD_LON) / HEAD_LON
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    front = np.exp(-((ph - np.pi) ** 2 / 0.05 + (th - 1.75) ** 2 / 0.03))
+    brow = np.exp(-((ph - np.pi) ** 2 / 0.4 + (th - 1.25) ** 2 / 0.01))
+    r = 1 + 0.25 * front + 0.05 * brow
+    x = 80 * r * np.sin(th) * np.sin(ph)
+    y = -110 * np.cos(th) * np.ones_like(r)
+    z = 95 * r * np.sin(th) * np.cos(ph)
+    pts = np.concatenate([[[0, -110, 0]], np.stack([x, y, z], -1)
+                          .reshape(-1, 3), [[0, 110, 0]]])
+    a = np.deg2rad(3.0 * frame)
+    rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]])
+    verts = (pts @ rot.T + np.asarray(centre)).astype(np.float32)
+    ring = lambda i: 1 + i * HEAD_LON  # noqa: E731
+    j = np.arange(HEAD_LON)
+    jn = (j + 1) % HEAD_LON
+    faces = [np.stack([np.zeros_like(j), ring(0) + jn, ring(0) + j], -1)]
+    for i in range(HEAD_LAT - 1):
+        a0, a1 = ring(i) + j, ring(i) + jn
+        b0, b1 = ring(i + 1) + j, ring(i + 1) + jn
+        faces += [np.stack([a0, a1, b0], -1), np.stack([a1, b1, b0], -1)]
+    last = len(pts) - 1
+    faces.append(np.stack([np.full_like(j, last), ring(HEAD_LAT - 1) + j,
+                           ring(HEAD_LAT - 1) + jn], -1))
+    return verts, np.concatenate(faces).astype(np.int32)
+
+
+def write_obj(path, verts, faces):
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in faces]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def ring_cameras(n, radius=900.0, target=(0.0, 0.0, 1000.0)):
+    """``tests/test_multiface.py:_ring_cameras`` at the frame's size: n
+    cameras on a ring around ``target`` looking at it (mm), K's focal
+    ``MF_FOCAL`` and the principal point at the frame's centre →
+    {name: (K, [R | t])}."""
+    H, W = RASTER_HW
+    cams = {}
+    target = np.asarray(target)
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        eye = target + radius * np.array([np.sin(a), 0.1, -np.cos(a)])
+        fwd = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross(fwd, [0, 1, 0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        K = np.array([[MF_FOCAL, 0, W / 2], [0, MF_FOCAL, H / 2],
+                      [0, 0, 1]])
+        cams[f"40000{i:02d}"] = (K, np.hstack([R, (-R @ eye)[:, None]]))
+    return cams
+
+
+def krt_text(cams):
+    lines = []
+    for name, (K, E) in cams.items():
+        lines.append(name)
+        lines += [" ".join(repr(float(v)) for v in row) for row in K]
+        lines.append("0 0 0 0 0")
+        lines += [" ".join(repr(float(v)) for v in row) for row in E]
+        lines.append("")
+    return "\n".join(lines) + "\n"
+
+
+def smooth_image(rng, H, W):
+    """A seeded smooth RGB image (uint8): a few sinusoids per channel."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    out = np.zeros((H, W, 3), np.float32)
+    for c in range(3):
+        fx, fy, p = rng.uniform(0.002, 0.02, 2).tolist() + [rng.uniform(6)]
+        out[..., c] = 0.5 + 0.4 * np.sin(fx * x + fy * y + p)
+    return (out * 255).astype(np.uint8)
+
+
+def write_multiface_subject():
+    """The fabricated multiface subject under ``MF_DIR``: a KRT file of
+    ``MF_CAMS`` ring cameras at the frame's size, the tracked head mesh of
+    each of ``MF_FRAMES`` (OBJ, mm), a seeded image of the first frame
+    from every camera, and split files with the 6 reference centres of
+    ``tests/test_multiface.py`` (DINER) and their first 4 (MVS) → (root,
+    split6, split4)."""
+    from PIL import Image
+    shutil.rmtree(MF_DIR, ignore_errors=True)
+    root = MF_DIR / "data"
+    subj = root / MF_SUBJECT
+    (subj / "tracked_mesh" / MF_SEQ).mkdir(parents=True)
+    cams = ring_cameras(MF_CAMS)
+    (subj / "KRT").write_text(krt_text(cams))
+    for k, frame in enumerate(MF_FRAMES):
+        write_obj(subj / "tracked_mesh" / MF_SEQ / f"{frame}.obj",
+                  *head_mesh(k))
+    rng = np.random.RandomState(5)
+    H, W = RASTER_HW
+    for cam in cams:
+        d = subj / "images" / MF_SEQ / cam
+        d.mkdir(parents=True)
+        Image.fromarray(smooth_image(rng, H, W)).save(
+            d / f"{MF_FRAMES[0]}.png", compress_level=1)
+    splits = []
+    for n in (6, 4):
+        stage = {"subjects": [MF_SUBJECT], "sequences": [MF_SEQ],
+                 "ref_centers": MF_REF_CENTERS[:n]}
+        p = MF_DIR / f"split{n}.json"
+        p.write_text(json.dumps({"train": stage, "val": stage}))
+        splits.append(p)
+    return (root, *splits)
+
+
+def rasterize_edge_cases(device, seed=0):
+    """name → (uv, z, faces, H, W), the projected inputs of kernel R:
+    both windings overlapping; |denom| just above and just below 1e-12 at
+    a pixel centre (tiny right triangles with exact f32 edges, the one
+    below nearer: dropped, it must not win); a collapsed face beside a
+    real one; vertices at z = znear, just past it, at 0 and behind (through
+    ``project``); edges along rows and columns of pixel centres; slivers;
+    a face larger than the image, faces off screen and partly off; F = 0;
+    H, W and F no multiples of the tile (16) or the chunk (256); 1,000
+    faces crowding one tile."""
+    from diner_tpu_torch.ops.rasterize_cuda import project
+    rng = np.random.RandomState(seed)
+
+    def case(uv, z, faces, H, W):
+        return (torch.as_tensor(np.asarray(uv, np.float32), device=device),
+                torch.as_tensor(np.asarray(z, np.float32), device=device),
+                torch.as_tensor(np.asarray(faces, np.int32).reshape(-1, 3),
+                                device=device), H, W)
+
+    def random_tris(F, H, W, size, off=0.0):
+        c = rng.uniform([-off * W, -off * H], [W * (1 + off), H * (1 + off)],
+                        (F, 2))
+        uv = c[:, None] + rng.normal(size=(F, 3, 2)) * size
+        z = rng.uniform(0.5, 3.0, (F, 3))
+        return uv.reshape(-1, 2), z.ravel(), np.arange(3 * F)
+
+    ulp = 2.0 ** -24  # of values in [0.5, 1)
+    c0 = [0.5, 0.5]
+    tiny = [c0, [0.5 + 17 * ulp, 0.5], [0.5, 0.5 + 17 * ulp],   # 1.03e-12
+            c0, [0.5 + 16 * ulp, 0.5], [0.5, 0.5 + 17 * ulp],   # 0.97e-12
+            c0, [0.5, 0.5 + 17 * ulp], [0.5 + 17 * ulp, 0.5]]   # −1.03e-12
+    verts3 = np.array([[-1, -1, 2], [1, -1, 2], [0, 1, 2],      # valid
+                       [-1, 1, 1e-4], [1, 1, 2], [0, -1, 2],    # z == znear
+                       [-1, 0, 2e-4], [1, 0, 2], [0, 1, 3],     # just past
+                       [0.5, 0.5, 0.0], [1, -0.5, 2], [0, 1, 2],  # z = 0
+                       [0.2, 0.2, -1], [1, 0, 2], [0, 1, 2]], np.float32)
+    K3 = torch.tensor([[20.0, 0, 20.0], [0, 21.0, 15.0], [0, 0, 1]])
+    uv3, z3 = project(torch.from_numpy(verts3), K3, torch.eye(4))
+    sl_a = rng.uniform(0, 40, (12, 2))
+    sl_b = rng.uniform(0, 40, (12, 2))
+    normal = (sl_b - sl_a)[:, ::-1] * [1, -1]
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    sl_c = (sl_a + sl_b) / 2 + normal * np.geomspace(1e-5, 0.3, 12)[:, None]
+    slivers = np.stack([sl_a, sl_b, sl_c], 1).reshape(-1, 2)
+    crowd = random_tris(1000, 16, 16, 3.0)
+    crowd[0][:] = np.clip(crowd[0], 16.5, 31.5)  # all in tile (1, 1)
+    return {
+        "orientations": case(
+            [[3.2, 4.1], [30.7, 6.3], [12.9, 25.8], [28.1, 2.2], [5.5, 27.9],
+             [31.3, 20.4]], [1.0, 1.5, 2.0, 1.2, 0.9, 1.8],
+            [[0, 1, 2], [3, 4, 5]], 29, 37),
+        "denom_threshold": case(tiny, [2.0, 2.0, 2.0, 1.0, 1.0, 1.0, 2.5,
+                                       2.5, 2.5],
+                                [[0, 1, 2], [3, 4, 5], [6, 7, 8]], 3, 3),
+        "collapsed_face": case([[2.0, 3.0], [14.0, 5.0], [6.0, 13.0],
+                                [7.3, 7.7]], [2.0, 2.0, 2.0, 1.0],
+                               [[0, 1, 2], [3, 3, 3]], 16, 16),
+        "znear_and_z0": (uv3.to(device), z3.to(device), torch.arange(
+            15, dtype=torch.int32, device=device).reshape(5, 3), 30, 40),
+        "axis_aligned": case([[2.5, 2.5], [12.5, 2.5], [2.5, 9.5],
+                              [12.5, 9.5]], [1.0, 2.0, 1.5, 1.2],
+                             [[0, 1, 2], [1, 3, 2], [0, 2, 1]], 12, 15),
+        "slivers": case(slivers, rng.uniform(0.5, 3.0, 36),
+                        np.arange(36), 40, 40),
+        "large_and_off_screen": case(
+            [[-1e4, -1e4], [1e4, -50.0], [-50.0, 1e4],
+             [60.0, 3.0], [75.0, 9.0], [66.0, 20.0],
+             [-20.0, 5.0], [6.0, 8.0], [-3.0, 30.0]],
+            [5.0, 6.0, 7.0, 1.0, 1.0, 1.0, 2.0, 1.5, 1.0],
+            [[0, 1, 2], [3, 4, 5], [6, 7, 8]], 24, 40),
+        "no_faces": case(np.zeros((3, 2)), np.ones(3), np.zeros((0, 3)),
+                         17, 19),
+        "odd_sizes_f777": case(*random_tris(777, 33, 47, 4.0, off=0.1),
+                               33, 47),
+        "crowded_tile_f1000": case(*crowd, 40, 40),
+    }
+
+
+def raster_pairs_in_boxes(uv, z, faces, H, W, znear=1e-4):
+    """The pixel-face tests a z-buffer needs, whatever its tiling: for each
+    valid face, the pixel centres of the map inside its box grown by one
+    pixel."""
+    from diner_tpu_torch.ops.rasterize_cuda import face_terms
+    t = face_terms(uv, z, faces, znear)
+    xlo, xhi, ylo, yhi = (b.double() for b in t["box"])
+    counts = []
+    for lo, hi, n in ((xlo, xhi, W), (ylo, yhi, H)):
+        a = torch.ceil(lo - 0.5).clamp(min=0)
+        b = torch.floor(hi - 0.5).clamp(max=n - 1)
+        counts.append((b - a + 1).clamp(min=0))
+    return int((counts[0] * counts[1])[t["valid"]].sum())
+
+
+def raster_pairs_after_cull(uv, z, faces, H, W, znear=1e-4):
+    """The pixel-face tests kernel R makes after its tile cull: for each
+    valid face, the 16×16 tiles its box (grown by one pixel) meets, times
+    the tile's pixels."""
+    from diner_tpu_torch.ops.rasterize_cuda import face_terms
+    t = face_terms(uv, z, faces, znear)
+    xlo, xhi, ylo, yhi = (b.double() for b in t["box"])
+    T = RASTER_TILE
+    tiles = []
+    for lo, hi, n in ((xlo, xhi, W), (ylo, yhi, H)):
+        a = torch.ceil((lo - (T - 0.5)) / T).clamp(min=0)
+        b = torch.floor((hi - 0.5) / T).clamp(max=(n - 1) // T)
+        tiles.append((b - a + 1).clamp(min=0))
+    n = (tiles[0] * tiles[1])[t["valid"]].sum()
+    return int(n) * T * T
+
+
+def raster_bound(pairs, V, F, H, W):
+    """(bound ms, what bounds it): ``pairs`` tests of
+    ``RASTER_OPS_PER_PAIR`` over the FP32 rate (``raster_pairs_in_boxes``),
+    or the bytes (uv and z read, the faces read, the map written once) over
+    the memory rate."""
+    ops_ms = 1e3 * pairs * RASTER_OPS_PER_PAIR / F32_FLOPS_PER_S
+    bytes_ms = 1e3 * (V * 12 + F * 12 + H * W * 4) / HBM_BYTES_PER_S
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def phase_kernel_rasterize(mf_root):
+    """Kernel R against its plain version on the card, bit for bit: every
+    case of ``rasterize_edge_cases`` and the main case, the first tracked
+    mesh of the multiface subject (50,400 faces, read from its OBJ) at the
+    frame's 2048×1334 from camera 0, which ``preprocess_multiface`` renders
+    too. The main case is timed: ``ms`` (a graph of 20 calls), ``call_ms``,
+    ``plain_ms`` (its one comparison call between CUDA events), the bound
+    of the pairs a z-buffer needs (pixel centres in each face's grown box),
+    beside the pairs the kernel's tile cull leaves and the dense bound of
+    H·W·F pairs.
+    Returns the rows and the plain map of the main case (on the host)."""
+    from diner_tpu_torch.data.multiface import load_krt
+    from diner_tpu_torch.ops import rasterize_cuda as rc
+    from diner_tpu_torch.preprocessing.rasterize import (
+        load_obj_vertices_faces)
+    rows, maps = [], {}
+    cases = rasterize_edge_cases("cuda")
+    for name, (uv, z, faces, H, W) in cases.items():
+        got = rc.rasterize_depth_kernel(uv, z, faces, H, W)
+        ref = rc.rasterize_depth_plain(uv, z, faces, H, W)
+        row = dict(case=name, H=H, W=W, F=faces.shape[0],
+                   exact=torch.equal(got, ref), covered=int((got > 0).sum()),
+                   max_abs_err=float((got - ref).abs().max()))
+        emit("kernel_rasterize", **row)
+        check(row["exact"], f"kernel R vs plain, {name}: {row}")
+        rows.append(row)
+        maps[name] = got
+    # the cases' own expectations: the face above the threshold covers its
+    # pixel centre at its depth, the one below is dropped; the collapsed
+    # face [3, 3, 3] adds nothing to the map of the real triangle alone
+    uv, z, faces, H, W = cases["collapsed_face"]
+    alone = rc.rasterize_depth_plain(uv, z, faces[:1], H, W)
+    thr = maps["denom_threshold"]
+    check(float(thr[0, 0]) == 2.0 and int((thr > 0).sum()) == 1
+          and int((maps["no_faces"] > 0).sum()) == 0
+          and torch.equal(maps["collapsed_face"], alone)
+          and int((alone > 0).sum()) > 0,
+          f"kernel R edge expectations: {rows}")
+
+    subj = mf_root / MF_SUBJECT
+    verts, faces = load_obj_vertices_faces(
+        subj / "tracked_mesh" / MF_SEQ / f"{MF_FRAMES[0]}.obj")
+    cam = sorted(load_krt(subj / "KRT").items())[0][1]
+    H, W = RASTER_HW
+    uv, z = rc.project(torch.from_numpy(verts).cuda(),
+                       torch.from_numpy(cam["intrin"]).cuda(),
+                       torch.from_numpy(cam["extrin"]).cuda())
+    faces_t = torch.from_numpy(faces).cuda()
+
+    def kernel():
+        return rc.rasterize_depth_kernel(uv, z, faces_t, H, W)
+
+    def plain():
+        return rc.rasterize_depth_plain(uv, z, faces_t, H, W,
+                                        pixel_block=16384, face_chunk=8192)
+
+    got = kernel()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ref = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    exact = torch.equal(got, ref)
+    pairs = raster_pairs_in_boxes(uv, z, faces_t, H, W)
+    bound, by = raster_bound(pairs, len(verts), len(faces), H, W)
+    dense = H * W * len(faces)
+    row = dict(case="multiface_head", H=H, W=W, V=len(verts), F=len(faces),
+               exact=exact, max_abs_err=float((got - ref).abs().max()),
+               covered=int((got > 0).sum()), ms=device_time_ms(kernel, n=20),
+               call_ms=cuda_time_ms(kernel, 10, 2), plain_ms=plain_ms,
+               plain_timing="its one comparison call between CUDA events "
+               "(tiles of 16,384 pixels × 8,192 faces)",
+               pairs_in_boxes=pairs, pairs_after_cull=raster_pairs_after_cull(
+                   uv, z, faces_t, H, W), dense_pairs=dense,
+               dense_bound_ms=1e3 * dense * RASTER_OPS_PER_PAIR
+               / F32_FLOPS_PER_S, bound_ms=bound, bound_by=by,
+               library_ms=None)
+    emit("kernel_rasterize", **row)
+    check(exact and row["covered"] > 0.02 * H * W,
+          f"kernel R vs plain at the multiface frame: {row}")
+    rows.append(row)
+    plain_map = ref.cpu().numpy()
+    del got, ref, uv, z
+    torch.cuda.empty_cache()
+    return rows, plain_map
+
+
+def multiface_map_breakdown(root):
+    """Host seconds of each step of one multiface map as ``process_frame``
+    takes them (camera 0, the first frame; the mesh read is once a
+    frame): the OBJ read and upload, R (synchronised), the copy to the
+    host, the uint16 codec, the depth PNG, the mask PNG."""
+    from PIL import Image
+
+    from diner_tpu_torch import preprocess_multiface as pm
+    from diner_tpu_torch.data.multiface import load_krt
+    from diner_tpu_torch.preprocessing.rasterize import (
+        load_obj_vertices_faces, rasterize_depth)
+    subj = root / MF_SUBJECT
+    out = MF_DIR / "breakdown"
+    out.mkdir(exist_ok=True)
+    t = [time.perf_counter()]
+
+    def lap():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+    verts, faces = load_obj_vertices_faces(
+        subj / "tracked_mesh" / MF_SEQ / f"{MF_FRAMES[0]}.obj")
+    verts = torch.as_tensor(verts, device="cuda")
+    faces = torch.as_tensor(faces, device="cuda")
+    lap()
+    cam = sorted(load_krt(subj / "KRT").items())[0][1]
+    depth = rasterize_depth(verts, faces, cam["intrin"], cam["extrin"],
+                            *RASTER_HW)
+    lap()
+    depth = depth.cpu().numpy()
+    lap()
+    q = pm.float32_2_uint16(depth)
+    lap()
+    Image.fromarray(q).save(out / "depth.png")
+    lap()
+    Image.fromarray(((depth != 0) * 255).astype(np.uint8)).save(
+        out / "mask.png")
+    lap()
+    names = ("mesh_read_s", "rasterize_s", "to_host_s", "codec_s",
+             "depth_png_s", "mask_png_s")
+    return {n: b - a for n, a, b in zip(names, t, t[1:])}
+
+
+def phase_preprocess_multiface(smi, root, plain_map):
+    """``python -m diner_tpu_torch.preprocess_multiface`` at
+    ``RASTER_HW`` (its defaults, 2048×1334) on the fabricated subject:
+    every camera and frame's depth and mask PNG. Checks: kernel R once per
+    camera and frame (``RASTER_LAUNCHES_PER_CALL`` launches a call) and no
+    other kernel; the first camera's first-frame PNG decodes to
+    ``float32_2_uint16`` of ``kernel_rasterize``'s plain map; every mask is
+    255 where its depth is not 0 and 0 elsewhere."""
+    from PIL import Image
+
+    from diner_tpu_torch import preprocess_multiface as pm
+    n_maps = MF_CAMS * len(MF_FRAMES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    written = pm.main(["--root", str(root), "-H", str(RASTER_HW[0]), "-W",
+                       str(RASTER_HW[1]), "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    first = sorted(written)[0]
+    png_equal = np.array_equal(np.asarray(Image.open(first)),
+                               pm.float32_2_uint16(plain_map))
+    masks_ok, covered = True, []
+    for d in written:
+        m = d.parents[3] / "masks" / d.relative_to(d.parents[2])
+        depth = np.asarray(Image.open(d))
+        mask = np.asarray(Image.open(m))
+        masks_ok &= np.array_equal(mask, np.where(depth != 0, 255, 0))
+        covered.append(float((depth != 0).mean()))
+    breakdown = multiface_map_breakdown(root)
+    emit("preprocess_multiface", nvidia_smi=smi, H=RASTER_HW[0],
+         W=RASTER_HW[1], cameras=MF_CAMS, frames=len(MF_FRAMES),
+         maps=len(written), cli_s=cli_s, s_per_depth_map=cli_s / n_maps,
+         launches=launches, first_png=str(first.relative_to(root)),
+         first_png_is_plain_map=png_equal, masks_are_depth_ne_0=masks_ok,
+         covered_share=[min(covered), max(covered)],
+         one_map_breakdown=breakdown,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    check(len(written) == n_maps, f"{len(written)} depth maps")
+    check(launches == (0, 0, 0, 0, 0, RASTER_LAUNCHES_PER_CALL * n_maps),
+          f"preprocess_multiface launches {launches}, expected kernel R "
+          f"{n_maps} times")
+    check(png_equal, f"{first} is not float32_2_uint16 of the plain map")
+    check(masks_ok and min(covered) > 0.02, f"masks / coverage {covered}")
+    return launches
+
+
+def multiface_config(root, split):
+    """``configs/evaluate_diner_on_multiface.yaml`` with ``root`` and
+    ``split_config`` of both stages pointed at the fabricated subject and
+    the run under ``MF_DIR``, written as JSON → its path."""
+    from diner_tpu_torch.train.config import load_train_config
+    raw = load_train_config(ROOT / "configs" /
+                            "evaluate_diner_on_multiface.yaml").raw
+    for stage in ("train", "val"):
+        raw["data"][stage]["dataset"]["kwargs"].update(
+            root=str(root), split_config=str(split))
+    raw["logger"]["kwargs"]["save_dir"] = str(MF_DIR / "runs")
+    path = MF_DIR / "evaluate_diner_on_multiface.yaml"
+    path.write_text(json.dumps(raw, indent=1))
+    return path
+
+
+def phase_multiface_render(smi, root, split):
+    """``python -m diner_tpu_torch.predict --config
+    configs/evaluate_diner_on_multiface.yaml`` (``data`` on the fabricated
+    subject, whose depth and mask PNGs ``preprocess_multiface`` wrote) at
+    the config's full width (ResNet34 with the 64 px ring, ResnetFC 5 ×
+    512, 40 of 1000 samples, 15 Gaussians, white background, 4 source
+    views at 256×160) renders and scores ``MF_RENDERS`` images from a
+    seeded reference Lightning ``.ckpt``. Checks: the source depths the
+    loader gives DINER are the PNGs decoded and resized; the loaded weights
+    are the checkpoint's; 4 files per sample; finite scores; kernels A and
+    C per image as ``make_eval_step`` launches them (A once and C 6 times
+    per ray chunk), B, the DCN backward, the kNN and R never."""
+    from diner_tpu_torch import predict
+    from diner_tpu_torch.data.io import read_depth_png, resize_nearest
+    from diner_tpu_torch.data.multiface import MultifaceDataset
+    from diner_tpu_torch.train import diner
+    from diner_tpu_torch.train.config import load_train_config
+
+    cfg_path = multiface_config(root, split)
+    run_cfg = load_train_config(cfg_path)
+    dcfg = run_cfg.diner
+    ds = MultifaceDataset(root, "val", split_config=split, downsample=8)
+    sample = ds[0]
+    H, W = sample["target_rgb"].shape[:2]
+    meta = ds.metas[0]
+    srcs_equal = all(np.array_equal(
+        sample["src_depths"][j, ..., 0],
+        resize_nearest(read_depth_png(
+            root / MF_SUBJECT / "depths" / MF_SEQ / sid /
+            f"{MF_FRAMES[0]}.png"), H, W))
+        for j, sid in enumerate(meta["ref_ids"][2:]))
+    batch = {k: v[None] for k, v in sample.items()
+             if isinstance(v, np.ndarray)}
+    ckpt = MF_DIR / "DINER.ckpt"
+    weights = lightning_checkpoint(dcfg, batch, ckpt)
+    n_chunks = -(-H * W // dcfg.renderer.ray_chunk)
+    expected = (n_chunks, 0, 6 * n_chunks, 0, 0, 0)
+
+    make_eval = diner.make_eval_step
+    calls, models = [], []
+
+    def spied_make_eval(model, cfg, *args, **kwargs):
+        models.append(model)
+        step = make_eval(model, cfg, *args, **kwargs)
+
+        def timed(*a, **k):
+            before = read_counts()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((tuple(x - y for x, y in zip(read_counts(),
+                                                      before)),
+                          time.perf_counter()))
+            return out
+        return timed
+
+    out = MF_DIR / "predict"
+    diner.make_eval_step = spied_make_eval
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        scores = predict.main(["--config", str(cfg_path), "--ckpt",
+                               str(ckpt), "--out", str(out), "--n",
+                               str(MF_RENDERS), "--device", "cuda"])
+        t_cli = time.perf_counter() - t0
+    finally:
+        diner.make_eval_step = make_eval
+    launches = read_counts()
+    loaded = models[0].state_dict()
+    same = all(torch.equal(loaded[k].cpu(), weights[reference_key(k)])
+               for k in loaded)
+    files, suffixes = folder_files(out)
+    ends = [t0] + [c[1] for c in calls]
+    emit("multiface_render", nvidia_smi=smi,
+         config="configs/evaluate_diner_on_multiface.yaml, data: the "
+         "fabricated multiface subject (16 ring cameras, 2048×1334, depth "
+         "from preprocess_multiface), reference Lightning .ckpt",
+         H=H, W=W, n_samples=dcfg.renderer.n_samples,
+         n_gaussian=dcfg.renderer.n_gaussian, src_views=len(
+             meta["ref_ids"][2:]), src_depths_are_the_pngs=srcs_equal,
+         loaded_bit_for_bit=same, images=len(calls), cli_s=t_cli,
+         s_per_image=[b - a for a, b in zip(ends, ends[1:])],
+         launches=launches, launches_per_image=[c[0] for c in calls],
+         expected_launches_per_image=expected, scores=scores,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    check((H, W) == tuple(int(n / 8 // 32 * 32) for n in RASTER_HW)
+          and len(meta["ref_ids"][2:]) == 4,
+          f"multiface sample {H}×{W}, {meta['ref_ids']}")
+    check(srcs_equal, "the source depths DINER reads are not the PNGs")
+    check(same, "the loaded weights are not the checkpoint's")
+    check(len(files) == MF_RENDERS and all(v == suffixes
+                                           for v in files.values()),
+          f"prediction folder {files}")
+    check(all(np.isfinite(v) for v in scores.values()), f"scores {scores}")
+    check(len(calls) == MF_RENDERS and all(c[0] == expected for c in calls),
+          f"launches per image {[c[0] for c in calls]}, expected "
+          f"{expected}")
+    return launches
+
+
+def phase_mvs_multiface(smi, root, split4):
+    """``python -m diner_tpu_torch.mvs --dataset multiface --mode train
+    --max-steps 2`` (a subprocess, ``MVS_TRAIN_CLI``) at the CLI's defaults
+    (base_channels 8, ndepths 48/32/8, 192 hypotheses, 4 views, the
+    loader's 1/8: 256×160) on the fabricated subject, 4 reference centres.
+    Checks: finite losses, no step skipped, kernel C and the DCN backward
+    per step as ``mvs_train_launches`` derives them, the peak within
+    ``MEMORY_SHARE_LIMIT`` of the card."""
+    from diner_tpu_torch.mvs.model import TransMVSNetConfig
+    logdir = MF_DIR / "mvs"
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    r = run_mvs_train_cli(["--mode", "train", "--dataset", "multiface",
+                           "--trainpath", root, "--split_config", split4,
+                           "--logdir", logdir, "--max-steps", MF_MVS_STEPS,
+                           "--device", "cuda"])
+    recs = r["records"]
+    per_c, per_d = mvs_train_launches(TransMVSNetConfig(), 4)
+    expected = [0, 0, per_c * MF_MVS_STEPS, per_d * MF_MVS_STEPS, 0, 0]
+    s = [x["s"] for x in recs]
+    emit("mvs_multiface", nvidia_smi=smi, steps=len(recs),
+         losses=[x["loss"] for x in recs], s_per_step=s,
+         skipped=sum(x["skipped"] for x in recs),
+         time_to_first_step_s=r["step_seconds_from_start"][0],
+         wall_s=r["wall_s"], peak_mem_bytes=r["peak"],
+         launches=r["launches"], expected_launches=expected)
+    check(len(recs) == MF_MVS_STEPS and all(
+        np.isfinite(x["loss"]) and x["skipped"] == 0 for x in recs),
+        f"mvs_multiface records {recs}")
+    check(r["launches"] == expected, f"mvs_multiface launches "
+          f"{r['launches']}, expected {expected}")
+    check(r["peak"] <= MEMORY_SHARE_LIMIT * total_mem,
+          f"mvs_multiface peak {r['peak']} B")
+    return tuple(r["launches"])
+
+
+def textured_view(rng, verts, faces, K, E, H, W, device):
+    """One raw view of the head mesh (mm) through the pinhole K, [R | t]:
+    a smooth colour field of the surface's world point (so every view sees
+    one texture), shifted by this view's own affine colour gain and
+    offset (a camera's colour response), on a seeded smooth background →
+    (H, W, 3) uint8. The depth comes from kernel R."""
+    from diner_tpu_torch.ops import rasterize_cuda as rc
+    uv, z = rc.project(*(torch.as_tensor(np.asarray(a, np.float32),
+                                         device=device)
+                         for a in (verts, K, E)))
+    depth = rc.rasterize(uv, z, torch.as_tensor(faces, device=device), H,
+                         W).cpu().numpy().astype(np.float64)
+    y, x = np.mgrid[0:H, 0:W] + 0.5
+    cam = np.stack([(x - K[0, 2]) / K[0, 0] * depth,
+                    (y - K[1, 2]) / K[1, 1] * depth, depth], -1)
+    world = (cam - E[:, 3]) @ E[:, :3]  # R^T (x_cam − t)
+    freq = np.array([[0.031, 0.017, -0.023], [-0.014, 0.029, 0.021],
+                     [0.019, -0.026, 0.015]])  # rad / mm
+    tex = 0.45 + 0.15 * np.sin(world @ freq.T + [0.3, 1.9, 4.1])
+    gain = rng.uniform(0.92, 1.08, 3)
+    offset = rng.uniform(-0.03, 0.03, 3)
+    img = smooth_image(rng, H, W).astype(np.float64) / 255
+    img = np.where(depth[..., None] > 0, tex * gain + offset, img)
+    return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
+
+
+def write_facescape_raw(device="cuda"):
+    """A fabricated raw FaceScape subject under ``FS_DIR``: pose
+    ``1_neutral`` with ``FS_VIEWS`` views at 2048×1334 (JPEG,
+    ``textured_view``: one texture seen through a per-view affine colour
+    shift, which the colour calibration fits and corrects) on a ring
+    around the head mesh (binary PLY, mm, at the origin), small
+    distortions, and an identity ``Rt_scale_dict.json`` → (raw subject
+    dir, rt_scale path)."""
+    from PIL import Image
+    shutil.rmtree(FS_DIR, ignore_errors=True)
+    raw = FS_DIR / "RAW" / "1"
+    pose = raw / "1_neutral"
+    pose.mkdir(parents=True)
+    H, W = RASTER_HW
+    cams = ring_cameras(8, target=(0.0, 0.0, 0.0))
+    params = {}
+    rng = np.random.RandomState(7)
+    verts, faces = head_mesh(0, centre=(0.0, 0.0, 0.0))
+    for i, (K, E) in enumerate(list(cams.values())[:FS_VIEWS]):
+        params.update({f"{i}_K": K.tolist(), f"{i}_Rt": E.tolist(),
+                       f"{i}_distortion": [0.01, -0.002, 0.0005, 0.0003, 0.0],
+                       f"{i}_width": W, f"{i}_height": H, f"{i}_valid": True})
+        Image.fromarray(textured_view(rng, verts, faces, K, E, H, W,
+                                      device)).save(pose / f"{i}.jpg",
+                                                    quality=90)
+    (pose / "params.json").write_text(json.dumps(params))
+    with open(raw / "1_neutral.ply", "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n"
+                + f"element vertex {len(verts)}\n".encode()
+                + b"property float x\nproperty float y\nproperty float z\n"
+                + f"element face {len(faces)}\n".encode()
+                + b"property list uchar int vertex_indices\nend_header\n")
+        rec = np.zeros(len(faces), [("n", "u1"), ("idx", "<i4", 3)])
+        rec["n"] = 3
+        rec["idx"] = faces
+        f.write(verts.astype("<f4").tobytes() + rec.tobytes())
+    rt_scale = FS_DIR / "Rt_scale_dict.json"
+    rt_scale.write_text(json.dumps(
+        {"1": {"1": [1.0, [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]]]}}))
+    return raw, rt_scale
+
+
+def facescape_readback(out):
+    """The written views through the port's ``FacescapeDataset`` (DINER,
+    ``depth_type="mesh"``): each view gets the dataset's file names (the
+    calibrated image, else ``rgba.png``, as ``rgba_colorcalib_v2.png``;
+    ``depth.png`` as ``depth_mesh.png`` and as each third of the triptych)
+    and a split of one val meta (target 0, sources 1 and 2) → whether the
+    sample's source images and depths are the written PNGs."""
+    from PIL import Image
+
+    from diner_tpu_torch.data.facescape import (DEPTH_FNAME,
+                                                DEPTH_MESH_FNAME,
+                                                FacescapeDataset,
+                                                RGBA_FNAME, read_rgba)
+    from diner_tpu_torch.data.io import DEPTH_PNG_SCALE
+    scan = out / "01"
+    for view in sorted(scan.glob("view_*")):
+        calib = view / "rgba_colorcalib.png"
+        shutil.copy(calib if calib.exists() else view / "rgba.png",
+                    view / RGBA_FNAME)
+        depth = np.asarray(Image.open(view / "depth.png"))
+        shutil.copy(view / "depth.png", view / DEPTH_MESH_FNAME)
+        Image.fromarray(np.concatenate([depth] * 3, axis=1)).save(
+            view / DEPTH_FNAME)
+    split_dir = FS_DIR / "splits"
+    split_dir.mkdir(exist_ok=True)
+    (split_dir / "val_metas_binocular.txt").write_text(json.dumps([{
+        "scan_path": f"{out.name}/01", "targets_val": ["0"],
+        "l_refs_val": ["1"], "r_refs_val": ["2"]}]))
+    ds = FacescapeDataset(out.parent, "val", depth_type="mesh",
+                          split_dir=split_dir, n_repeat=1)
+    s = ds[0]
+    ok = s["src_rgbs"].shape == (2, FS_CROP, FS_CROP, 3)
+    for j, vid in enumerate((1, 2)):
+        view = scan / f"view_{vid:05d}"
+        rgb, _ = read_rgba(view / RGBA_FNAME)
+        depth = np.asarray(Image.open(view / "depth.png")).astype(
+            np.float32) * DEPTH_PNG_SCALE
+        ok &= np.array_equal(s["src_rgbs"][j], rgb)
+        ok &= np.array_equal(s["src_depths"][j, ..., 0], depth)
+    return bool(ok)
+
+
+def facescape_view_breakdown(raw, out):
+    """Host seconds of each step of one raw FaceScape view as
+    ``process_pose`` takes it (view 0), and of the whole colour
+    calibration of the written scan (which writes its images again)."""
+    from PIL import Image
+
+    from diner_tpu_torch.preprocessing import facescape_pipeline as fp
+    pose = raw / "1_neutral"
+    cam = json.loads((pose / "params.json").read_text())
+    K = np.asarray(cam["0_K"], np.float64)
+    t = [time.perf_counter()]
+
+    def lap():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+    verts, faces = fp.load_ply(raw / "1_neutral.ply")
+    lap()
+    rgb = np.asarray(Image.open(pose / "0.jpg"), np.float64)[..., :3] / 255
+    lap()
+    rgb = fp.undistort_image(rgb, K, np.asarray(cam["0_distortion"]))
+    lap()
+    E = np.asarray(cam["0_Rt"], np.float32)
+    fp.rasterize_depth(verts, faces, K.astype(np.float32), E, *RASTER_HW,
+                       device="cuda").cpu().numpy()
+    lap()
+    fp.area_resize(rgb[:RASTER_HW[1]], FS_CROP)
+    lap()
+    # the mesh as process_pose hands it to the calibration (the identity
+    # alignment: the capture-studio axes, mm → m)
+    verts = (verts @ fp.FACESCAPE_2_CAPSTUDIO.T / 1000).astype(np.float32)
+    fp.calibrate_colors_scan(out / "01", verts, faces, device="cuda")
+    lap()
+    names = ("ply_read_s", "jpeg_decode_s", "undistort_s", "rasterize_s",
+             "crop_resize_s", "calibration_s")
+    return {n: b - a for n, a, b in zip(names, t, t[1:])}
+
+
+def phase_preprocess_facescape(smi):
+    """``python -m diner_tpu_torch.preprocess_facescape --crop_out 256`` on
+    a fabricated raw subject (``FS_VIEWS`` views at 2048×1334, a 50,400-face
+    PLY scan): undistortion, kernel R at each view's raw size, the
+    silhouette crop and resize, then the colour calibration (kernel R at
+    the crop size, kernel C under ``collect_vertex_colors``, the affine
+    fit and the corrected images). Checks: R once per view at the raw
+    size and once per view in the calibration, C ``FS_C_PER_VIEW`` times
+    per view, no other kernel; every view written; the calibration passed
+    at least one view through its gate and corrected it (its
+    ``rgba_colorcalib.png`` is not ``rgba.png``); the views read back
+    through ``FacescapeDataset``."""
+    from PIL import Image
+
+    from diner_tpu_torch.preprocess_facescape import main
+    raw, rt_scale = write_facescape_raw()
+    out = FS_DIR / "OUT" / "001"
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = main(["--dir_in", str(raw), "--dir_out", str(out), "--rt_scale",
+                 str(rt_scale), "--crop_out", str(FS_CROP), "--device",
+                 "cuda"])
+    cli_s = time.perf_counter() - t0
+    launches = read_counts()
+    expected = (0, 0, FS_C_PER_VIEW * FS_VIEWS, 0, 0,
+                2 * FS_VIEWS * RASTER_LAUNCHES_PER_CALL)
+    views = sorted(p.name for p in (out / "01").glob("view_*"))
+    calibrated = sorted(p.parent.name for p in
+                        (out / "01").glob("view_*/rgba_colorcalib.png"))
+    corrected = [v for v in calibrated if not np.array_equal(
+        *(np.asarray(Image.open(out / "01" / v / f)) for f in
+          ("rgba_colorcalib.png", "rgba.png")))]
+    cams = json.loads((out / "01" / "cameras.json").read_text())
+    breakdown = facescape_view_breakdown(raw, out)
+    readback = facescape_readback(out)
+    emit("preprocess_facescape", nvidia_smi=smi, raw_H=RASTER_HW[0],
+         raw_W=RASTER_HW[1], crop_out=FS_CROP, views=views,
+         calibrated=calibrated, corrected=corrected, poses=done, cli_s=cli_s,
+         s_per_pose=cli_s / len(done), launches=launches,
+         expected_launches=expected, one_view_breakdown=breakdown,
+         readback_equal=readback,
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    check(done == {"1_neutral": True}, f"poses {done}")
+    check(len(views) == FS_VIEWS and sorted(cams, key=int) == [
+        str(i) for i in range(FS_VIEWS)], f"views {views}, cameras {cams}")
+    check(launches == expected, f"preprocess_facescape launches {launches}, "
+          f"expected {expected}")
+    check(len(corrected) > 0, f"the colour calibration corrected no view: "
+          f"calibrated {calibrated}")
+    check(readback, "FacescapeDataset does not read back the written views")
+    return launches
+
+
+def phases_preprocessing(smi, mf_root, split6, split4, plain_map):
+    """The preprocessing and multiface phases after ``kernel_rasterize``
+    → their launches by path."""
+    out = {"preprocess_multiface": phase_preprocess_multiface(
+        smi, mf_root, plain_map)}
+    torch.cuda.empty_cache()
+    out["multiface_render"] = phase_multiface_render(smi, mf_root, split6)
+    torch.cuda.empty_cache()
+    out["mvs_multiface"] = phase_mvs_multiface(smi, mf_root, split4)
+    torch.cuda.empty_cache()
+    out["preprocess_facescape"] = phase_preprocess_facescape(smi)
+    shutil.rmtree(MF_DIR, ignore_errors=True)
+    shutil.rmtree(FS_DIR, ignore_errors=True)
+    return out
+
+
 def clean_outputs():
     """Delete what the phases wrote under ``OUT_DIR`` but its logs (the
     JSON log and the profile tables)."""
@@ -3990,6 +4826,8 @@ def main():
     gather_rows = phase_kernel_gather()
     dcn_rows = phase_kernel_dcn_bwd()
     knn_rows = phase_kernel_knn()
+    mf_root, mf_split6, mf_split4 = write_multiface_subject()
+    raster_rows, raster_plain_map = phase_kernel_rasterize(mf_root)
     eval_l, ev = phase_path()
     pairs_l = phase_path_pairs(ev)
     pruned_l = phase_path_pruned(ev)
@@ -4012,6 +4850,9 @@ def main():
     torch.cuda.empty_cache()
     kpn_l = phases_keypointnerf(smi)
     torch.cuda.empty_cache()
+    prep_l = phases_preprocessing(smi, mf_root, mf_split6, mf_split4,
+                                  raster_plain_map)
+    torch.cuda.empty_cache()
     mvs_l, mvs_gather_rows = phases_mvs(smi)
     torch.cuda.empty_cache()
     train_loop_l = phase_train_loop()
@@ -4022,10 +4863,11 @@ def main():
              "train_steps_pruned": train_pruned_l,
              "predict": predict_l["nsamples64"],
              "predict_nsamples32": predict_l["nsamples32"],
-             **novel_l, **kpn_l, **mvs_l, "train_loop": train_loop_l}
+             **novel_l, **kpn_l, **prep_l, **mvs_l,
+             "train_loop": train_loop_l}
 
     def entry(name, row_list, main, replaces, which, library_ms=None):
-        # launches per path: (A, B, C, DCN backward, kNN)
+        # launches per path: (A, B, C, DCN backward, kNN, R)
         by_path = {p: launches[which] for p, launches in paths.items()}
         return {
             "name": name, "route": "cuda",
@@ -4125,6 +4967,20 @@ def main():
                  "case", "SB", "N", "V", "index_disagreements",
                  "distance_gap", "deformed_max_abs_err", "plain_timing")
                  + timed if k in r} for r in knn_rows]),
+        # the multiface frame (2048×1334, 50,400 faces); the edge cases'
+        # exactness beside it
+        dict(entry("rasterize_depth", raster_rows, raster_rows[-1],
+                   "diner_tpu/preprocessing/rasterize.py:24", 5),
+             library_ms_note="no PyTorch call computes a z-buffer",
+             plain_timing=raster_rows[-1]["plain_timing"],
+             pairs_in_boxes=raster_rows[-1]["pairs_in_boxes"],
+             pairs_after_cull=raster_rows[-1]["pairs_after_cull"],
+             dense_pairs=raster_rows[-1]["dense_pairs"],
+             dense_bound_ms=raster_rows[-1]["dense_bound_ms"],
+             launches_per_multiface_map=paths["preprocess_multiface"][5]
+             / (MF_CAMS * len(MF_FRAMES)),
+             cases=[{k: r[k] for k in ("case", "H", "W", "F", "exact",
+                                       "covered")} for r in raster_rows]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -16,8 +16,8 @@ Ships the standard MVSNet DTU train/val scan splits (the reference expects
 vendor).
 
 Port-side copy of ``diner_tpu/data/dtu.py`` with its own split files; the
-debug harnesses (``visualize_item``, ``visualize_camgrid``), which plot
-with matplotlib, are not ported.
+debug harnesses (``visualize_item``, ``visualize_camgrid``) plot with
+``data/debug.py``.
 """
 
 from __future__ import annotations
@@ -191,6 +191,18 @@ class DTUDataset:
             src_view_ids=np.asarray(cam_ids[1:]),
             light_idx=light,
         )
+
+    # -- debug harnesses (reference dtu.py:342-419) -----------------------
+
+    def visualize_item(self, idx: int, show: bool = True, outfile=None):
+        from diner_tpu_torch.data.debug import visualize_item
+        visualize_item(self[idx], show=show, outfile=outfile)
+
+    def visualize_camgrid(self, show: bool = True, outfile=None):
+        from diner_tpu_torch.data.debug import visualize_camgrid
+        return visualize_camgrid(self.cam_dict["extrinsics"],
+                                 labels=self.cam_dict["ids"], show=show,
+                                 outfile=outfile)
 
     def check_depth_existence(self):
         missing: List[Path] = []

@@ -8,8 +8,9 @@ the background forced to white under alpha < 0.5, the depth triptych
 [gt | MVS pred | MVS conf] (or the mesh depth, ``depth_type``), the
 conf→std affine, znear 1.0 / zfar 2.5, and the camera sweep. The DINER
 schema and the KeypointNeRF one (3-D landmarks, face bounds, the ray-box
-mask). The fork's hardcoded depth paths are ``depth_root``. The matplotlib
-debug views of the JAX package (``data/debug.py``) are not ported.
+mask). The fork's hardcoded depth paths are ``depth_root``. The debug
+harnesses (``visualize_item``, ``visualize_camgrid``, ``reproject_depth``,
+``check_depth_existence``) call ``data/debug.py``.
 """
 
 from __future__ import annotations
@@ -149,6 +150,40 @@ class FacescapeDataset:
     @staticmethod
     def int_to_viewdir(i: int) -> str:
         return f"view_{i:05d}"
+
+    # -- debug harnesses (reference facescape.py:425-571) ----------------
+
+    def visualize_item(self, idx: int, show: bool = True, outfile=None):
+        from diner_tpu_torch.data.debug import visualize_item
+        visualize_item(self[idx], show=show, outfile=outfile)
+
+    def visualize_camgrid(self, i: int = 0, show: bool = True,
+                          outfile=None):
+        from diner_tpu_torch.data.debug import visualize_camgrid
+        scan_path = self.data_dir / self.metas[i]["scan_path"]
+        with open(scan_path / "cameras.json") as f:
+            cam_dict = json.load(f)
+        ids = sorted(cam_dict.keys(), key=int)
+        extr = to_homogeneous(np.asarray(
+            [cam_dict[c]["extrinsics"] for c in ids], np.float64))
+        return visualize_camgrid(extr, labels=ids, show=show,
+                                 outfile=outfile)
+
+    def reproject_depth(self, sample_idx: int = 0, outfile=None):
+        from diner_tpu_torch.data.debug import reproject_depth
+        return reproject_depth(self[sample_idx], outfile=outfile)
+
+    def check_depth_existence(self):
+        from diner_tpu_torch.data.debug import check_depth_existence
+        suffix = "_val" if self.stage == "val" else ""
+
+        def paths(meta):
+            mp = Path(meta["scan_path"])
+            for key in ("l_refs" + suffix, "r_refs" + suffix):
+                for vid in meta[key]:
+                    yield self._depth_paths(mp, vid)["trip"]
+
+        check_depth_existence(self.metas, paths)
 
     def _depth_paths(self, meta_path: Path, view_id) -> Dict[str, Path]:
         """Depth locations; `depth_root` mirrors the fork's flat side-tree

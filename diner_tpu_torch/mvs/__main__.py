@@ -31,8 +31,9 @@ model, Adam, schedule and step count in ``train``) or a reference
 TransMVSNet checkpoint (``{"model": …}`` or a bare state dict: the weights
 only); without it every mode reads the run's latest checkpoint, and
 without one the weights are a seeded draw. ``--dataset`` is
-``dtu_yao``, ``bld`` (BlendedMVS) or ``facescape`` (``--split_dir``);
-``multiface`` is not yet ported and exits with status 2. ``--debug-nans``
+``dtu_yao``, ``bld`` (BlendedMVS), ``facescape`` (``--split_dir``) or
+``multiface`` (``--split_config``, the DINER split JSON with 4 reference
+centres; ``--split_dir`` caches its metas). ``--debug-nans``
 trains under ``torch.autograd.set_detect_anomaly``. It runs on ``cuda``
 unless ``--device cpu`` is given.
 """
@@ -56,8 +57,10 @@ def build_parser():
     ap.add_argument("--trainlist", default=None,
                     help="scan list (dtu_yao / bld)")
     ap.add_argument("--split_dir", default=None,
-                    help="facescape: DINER split directory")
-    ap.add_argument("--split_config", default=None)
+                    help="facescape: DINER split directory; multiface: "
+                         "the metas' cache directory")
+    ap.add_argument("--split_config", default=None,
+                    help="multiface: split json")
     ap.add_argument("--vallist", default=None)
     ap.add_argument("--ndepths", default="48,32,8")
     ap.add_argument("--depth_inter_r", default="4,2,1")
@@ -111,6 +114,8 @@ def build_dataset(args, ap):
     mode = "train" if args.mode == "train" else "val"
     if args.dataset in ("dtu_yao", "bld") and not args.trainlist:
         ap.error(f"--trainlist is required for {args.dataset}")
+    if args.dataset == "multiface" and not args.split_config:
+        ap.error("--split_config is required for multiface")
     if args.dataset == "dtu_yao":
         from diner_tpu_torch.mvs.datasets import MVSDTUDataset
         return MVSDTUDataset(args.trainpath, args.trainlist, mode,
@@ -122,6 +127,12 @@ def build_dataset(args, ap):
             args.trainpath, args.mode, nviews=args.nviews,
             ndepths=args.numdepth,
             **({"split_dir": args.split_dir} if args.split_dir else {}))
+    if args.dataset == "multiface":
+        from diner_tpu_torch.mvs.multiface_dataset import MVSMultifaceDataset
+        return MVSMultifaceDataset(
+            args.trainpath, args.mode, nviews=args.nviews,
+            ndepths=args.numdepth, split_config=args.split_config,
+            meta_dir=args.split_dir)
     from diner_tpu_torch.mvs.eval_datasets import MVSBlendedDataset
     return MVSBlendedDataset(args.trainpath, args.trainlist, mode,
                              nviews=args.nviews, ndepths=args.numdepth)
@@ -130,10 +141,6 @@ def build_dataset(args, ap):
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.dataset == "multiface":
-        ap.exit(2, f"{ap.prog}: --dataset multiface is not yet ported to "
-                "diner_tpu_torch (its loader needs data/multiface.py's "
-                "camera and colour helpers)\n")
 
     from diner_tpu_torch.device import resolve_device
     device = resolve_device(args.device)

@@ -30,7 +30,8 @@ SOURCES = {"composite_fwd": "csrc/composite_fwd.cu",
            "composite_bwd": "csrc/composite_bwd.cu",
            "row_gather": "csrc/row_gather.cu",
            "dcn_sample_bwd": "csrc/dcn_sample_bwd.cu",
-           "knn1": "csrc/knn1.cu"}
+           "knn1": "csrc/knn1.cu",
+           "rasterize_depth": "csrc/rasterize_depth.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

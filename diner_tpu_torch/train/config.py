@@ -66,21 +66,20 @@ def _build_facescape_regressor(stage: str, model: str = "DINER", **kwargs):
     return FacescapeRegressorDataset(stage=stage, **kwargs)
 
 
+@register_dataset("multiface", "src.data.multiface.MultiFaceDataset")
+def _build_multiface(stage: str, model: str = "DINER", **kwargs):
+    from diner_tpu_torch.data.multiface import MultifaceDataset
+    return MultifaceDataset(stage=stage, model=model, **kwargs)
+
+
 @register_dataset("synthetic_sphere")
 def _build_synth(stage: str, model: str = "DINER", **kwargs):
     from diner_tpu_torch.data.synthetic_dataset import SphereDataset
     return SphereDataset(stage=stage, model=model, **kwargs)
 
 
-# the JAX package's datasets that the port does not have yet
-NOT_YET_PORTED = {"multiface", "src.data.multiface.MultiFaceDataset"}
-
-
 def build_dataset(conf: dict, stage: str, model: str = "DINER"):
     module = conf["module"]
-    if module in NOT_YET_PORTED:
-        raise KeyError(f"dataset {module!r} is not yet ported to "
-                       f"diner_tpu_torch; ported: {sorted(DATASET_REGISTRY)}")
     if module not in DATASET_REGISTRY:
         raise KeyError(f"unknown dataset {module!r}; known: "
                        f"{sorted(DATASET_REGISTRY)}")

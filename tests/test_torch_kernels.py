@@ -24,6 +24,13 @@ compute |v|² − 2·p·v with the same roundings): N and V no multiples of the
 block or the tile, V = 1, duplicated vertices (the first copy), exact
 ties, two scenes with different vertex sets, strided points, N = 0
 (``chip_smoke.knn_edge_cases``, which ``kernel_knn`` runs too).
+Kernel R (the mesh z-buffer) must equal its plain version bit for bit on
+``chip_smoke.rasterize_edge_cases`` (both windings, |denom| on both sides
+of 1e-12, a collapsed face, vertices at and behind znear and at z = 0,
+edges through pixel centres, slivers, faces larger than the map and off
+it, F = 0, sizes no multiple of the 16×16 tile or the 256-face chunk, a
+crowded tile), which ``kernel_rasterize`` runs too; on the CPU the plain
+version must give the same map at any tiling.
 """
 
 import numpy as np
@@ -31,7 +38,8 @@ import pytest
 import torch
 
 from chip_smoke import (COMPOSITE_BWD_CASES, composite_bwd_case,
-                        gather_edge_tables, knn_edge_cases)
+                        gather_edge_tables, knn_edge_cases,
+                        rasterize_edge_cases)
 from diner_tpu_torch.ops import composite as plain
 from diner_tpu_torch.ops import composite_cuda, cuda_build, gather_cuda
 
@@ -259,3 +267,31 @@ def test_knn1_kernel_edges(cuda, case):
         assert torch.equal(got, expected)
     if case == "duplicates":  # the first of two copies
         assert int(got.max()) < verts.shape[1] // 2
+
+
+@pytest.mark.parametrize("case", sorted(rasterize_edge_cases("cpu")))
+def test_rasterize_plain_is_tiling_invariant(case):
+    """The plain version gives the same map at any (pixel_block,
+    face_chunk) tiling: the min over faces is taken per face, in order."""
+    from diner_tpu_torch.ops import rasterize_cuda
+    uv, z, faces, H, W = rasterize_edge_cases("cpu")[case]
+    ref = rasterize_cuda.rasterize_depth_plain(uv, z, faces, H, W)
+    assert ref.shape == (H, W) and ref.dtype == torch.float32
+    assert torch.equal(ref, rasterize_cuda.rasterize_depth_plain(
+        uv, z, faces, H, W, pixel_block=7, face_chunk=5))
+    if case == "denom_threshold":  # above 1e-12 covers its pixel centre
+        assert ref[0, 0] == 2.0 and int((ref > 0).sum()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(rasterize_edge_cases("cpu")))
+def test_rasterize_kernel_edges(cuda, case):
+    from diner_tpu_torch.ops import rasterize_cuda
+    uv, z, faces, H, W = rasterize_edge_cases(cuda)[case]
+    before = rasterize_cuda.launches
+    got = rasterize_cuda.rasterize_depth_kernel(uv, z, faces, H, W)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.launches == before + (2 if faces.shape[0] else 1)
+    assert got.dtype == torch.float32 and got.shape == (H, W)
+    assert torch.equal(got, rasterize_cuda.rasterize_depth_plain(
+        uv, z, faces, H, W))

@@ -49,6 +49,28 @@ def test_load_train_config_matches_jax(path):
         assert ours.dataloader_kwargs(stage) == ref.dataloader_kwargs(stage)
 
 
+def test_multiface_config_builds_in_both_packages(tmp_path):
+    """configs/evaluate_diner_on_multiface.yaml with ``root`` and
+    ``split_config`` pointed at a fabricated multiface tree builds
+    ``MultifaceDataset`` in both packages, with the same metas and the same
+    first sample, for both stages."""
+    from diner_tpu.train.config import build_dataset as j_build_dataset
+    from diner_tpu_torch.data.multiface import MultifaceDataset
+    from tests.test_multiface import _write_multiface_fixture
+    from tests.test_torch_mvs_data import assert_same_sample
+    root, split = _write_multiface_fixture(tmp_path, H=128, W=96)
+    cfg = load_train_config(ROOT / "configs/evaluate_diner_on_multiface.yaml")
+    for stage in ("train", "val"):
+        conf = cfg.raw["data"][stage]["dataset"]
+        conf = dict(conf, kwargs=dict(conf["kwargs"], root=str(root),
+                                      split_config=str(split), downsample=2))
+        ours, ref = build_dataset(conf, stage), j_build_dataset(conf, stage)
+        assert isinstance(ours, MultifaceDataset) and len(ours) > 0
+        assert ours.metas == ref.metas
+        assert_same_sample(ours[0], ref[0])
+    assert (cfg.diner.znear, cfg.diner.zfar) == (0.5, 1.5)
+
+
 def test_train_dtu_config_is_the_production_recipe():
     """configs/train_dtu.yaml sets no compute_dtype: it trains in f32."""
     d = load_train_config(ROOT / "configs/train_dtu.yaml").diner
@@ -92,9 +114,9 @@ def test_dataset_registry():
     sphere = build_dataset({"module": "synthetic_sphere",
                             "kwargs": {"n": 3, "H": 8, "W": 8}}, "val")
     assert len(sphere) == 3 and sphere.stage == "val"
-    with pytest.raises(KeyError, match="not yet ported"):
-        build_dataset({"module": "src.data.multiface.MultiFaceDataset"},
-                      "train")
+    from diner_tpu.train.config import DATASET_REGISTRY as J_REGISTRY
+    from diner_tpu_torch.train.config import DATASET_REGISTRY
+    assert sorted(DATASET_REGISTRY) == sorted(J_REGISTRY)  # multiface too
     with pytest.raises(KeyError, match="unknown dataset"):
         build_dataset({"module": "nope"}, "train")
 

@@ -3,7 +3,7 @@
 helpers) on fabricated trees built as ``tests/test_mvs_train.py`` and
 ``tests/test_mvs_eval_datasets.py`` build theirs, the DTU fixture writer
 against ``scripts/make_dtu_fixture.py``, ``python -m diner_tpu_torch.mvs``
-(write_prediction, val, the modes not yet ported) and ``python -m
+(write_prediction, val, multiface without its split json) and ``python -m
 diner_tpu_torch.mvs.evaluate --device cpu`` against the folder protocol of
 ``scripts/mvs_test.py``.
 
@@ -323,12 +323,13 @@ def test_val_cli_and_modes_not_yet_ported(dtu_tree, small_crop, capsys):
     assert sorted(scores) == ["abs_depth_error", "thres2mm_error",
                               "thres4mm_error", "thres8mm_error"]
     assert all(np.isfinite(v) for v in scores.values())
-    # the training modes, bf16, bld and facescape are ported now
-    # (tests/test_torch_mvs_datasets_train.py); multiface is not
+    # every mode and dataset is ported now (the training modes, bld and
+    # facescape in tests/test_torch_mvs_datasets_train.py, multiface in
+    # tests/test_torch_multiface.py); multiface needs its split json
     with pytest.raises(SystemExit) as e:
         mvs_cli.main(["--mode", "val", "--dataset", "multiface", *base])
     assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "--split_config is required" in capsys.readouterr().err
 
 
 def test_evaluate_cli_writes_the_jax_protocol(tmp_path):

@@ -11,7 +11,8 @@ the identity, the model at ndepths 8/8/8, base_channels 4): ``--mode train
 equals an uninterrupted run's step 3 (the same batch, the same loss within
 ``LOSS_RTOL``), ``--mode profile`` writes a trace, ``write_prediction``
 reads the port checkpoint, ``--dtype bfloat16`` trains, and ``--dataset
-multiface`` exits with status 2.
+multiface`` without its ``--split_config`` exits with status 2 (it trains
+in ``tests/test_torch_multiface.py``).
 """
 
 import json
@@ -263,7 +264,8 @@ def test_train_resume_profile_and_predict_cli(train_tree, small_model,
 def test_train_cli_bf16_remat_and_multiface(train_tree, small_model,
                                             tmp_path, capsys):
     """``--dtype bfloat16`` and ``--remat --remat-mode selective`` train
-    with finite losses; ``--dataset multiface`` exits with status 2."""
+    with finite losses; ``--dataset multiface`` without ``--split_config``
+    exits with status 2."""
     bf = _run(train_tree, tmp_path / "bf", "--mode", "train",
               "--max-steps", "1", "--dtype", "bfloat16")
     rm = _run(train_tree, tmp_path / "rm", "--mode", "train",
@@ -274,7 +276,8 @@ def test_train_cli_bf16_remat_and_multiface(train_tree, small_model,
         _run(train_tree, tmp_path / "mf", "--mode", "train", "--dataset",
              "multiface")
     assert e.value.code == 2
-    assert "multiface is not yet ported" in capsys.readouterr().err
+    assert "--split_config is required for multiface" in \
+        capsys.readouterr().err
 
 
 def test_debug_nans_runs_under_anomaly_detection(train_tree, small_model,

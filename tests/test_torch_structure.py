@@ -50,7 +50,11 @@ def test_import_pulls_in_no_jax():
               "data.facescape", "data.facescape_novel",
               "data.facescape_regressor", "models.keypointnerf.modules",
               "models.keypointnerf.model", "models.keypointnerf.losses",
-              "models.keypointnerf.train"):
+              "models.keypointnerf.train", "ops.rasterize_cuda",
+              "preprocessing.rasterize", "preprocessing.facescape",
+              "preprocessing.facescape_pipeline", "preprocess_facescape",
+              "preprocess_multiface", "geometry.cam_paths", "data.multiface",
+              "data.debug", "mvs.multiface_dataset"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -172,10 +176,46 @@ def test_mvs_entry_points_default_to_cuda(monkeypatch, tmp_path):
                            "scan1"])
 
 
+def test_preprocessing_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """Both preprocess CLIs and ``rasterize_depth`` run on the card unless
+    the CPU is asked for, and raise without a GPU before reading data; the
+    kernel entry of kernel R refuses CPU tensors."""
+    from diner_tpu_torch.ops import rasterize_cuda
+    from diner_tpu_torch.preprocess_facescape import main as facescape_main
+    from diner_tpu_torch.preprocess_multiface import main as multiface_main
+    from diner_tpu_torch.preprocessing import rasterize_depth
+    from diner_tpu_torch.preprocessing.facescape import collect_vertex_colors
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    verts = np.array([[0, 0, 1], [1, 0, 1], [0, 1, 1]], np.float32)
+    faces = np.array([[0, 1, 2]], np.int32)
+    K = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rasterize_depth(verts, faces, K, np.eye(4, dtype=np.float32), 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        collect_vertex_colors(np.zeros((4, 4, 3)), np.zeros((4, 4)),
+                              np.zeros((1, 2)), np.ones(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multiface_main(["--root", str(tmp_path / "absent")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        facescape_main(["--dir_in", str(tmp_path / "absent"), "--dir_out",
+                        str(tmp_path / "out"), "--rt_scale",
+                        str(tmp_path / "absent.json")])
+    assert rasterize_depth(verts, faces, K, np.eye(4, dtype=np.float32), 4,
+                           4, device="cpu").shape == (4, 4)
+    uv, z = rasterize_cuda.project(torch.from_numpy(verts),
+                                   torch.from_numpy(K), torch.eye(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        rasterize_cuda.rasterize_depth_kernel(uv, z, torch.from_numpy(faces),
+                                              4, 4)
+    with pytest.raises(ValueError, match="expected"):
+        rasterize_cuda.rasterize_depth_kernel(uv, z[:2],
+                                              torch.from_numpy(faces), 4, 4)
+
+
 def test_kernel_build_goes_to_ignored_build_dir():
     assert sorted(cuda_build.SOURCES) == ["composite_bwd", "composite_fwd",
                                           "dcn_sample_bwd", "knn1",
-                                          "row_gather"]
+                                          "rasterize_depth", "row_gather"]
     for name, src in cuda_build.SOURCES.items():
         path = cuda_build.library_path(name)
         assert path.parent == ROOT / "build" / "kernels"
