@@ -635,7 +635,8 @@ def phase_path_pruned(ev):
 
 def profile_once(phase, fn):
     """Kernel time by name over one warm call of ``fn``, and the device's
-    idle share (1 − summed kernel time / wall time of the call)."""
+    idle share (1 − summed kernel time / wall time of the call); returns
+    the port's kernels' device ms and launches by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -668,6 +669,7 @@ def profile_once(phase, fn):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / f"chip_smoke_{phase}.txt").write_text(
         events.table(sort_by=attr, row_limit=80))
+    return port
 
 
 def stage_times(model, cfg, batch, H, W):
@@ -1931,11 +1933,16 @@ def phase_kernel_gather():
 # image's weights unrounded would move it by ~2^-9; d_x, d_y and d_scale
 # are f32 sums
 DCN_BWD_RTOL = 1e-5
-# the stage-3 tap of the 512×640 training step: 4 views, FeatureNet's DCN
-# inputs are 4 × base_channels = 32 wide
+# the taps of the 512×640 training step: 4 views, FeatureNet's DCN inputs
+# are 4 × base_channels = 32 wide at every stage (mvs/model.py:_dcn_head)
 DCN_TAP = dict(N=4, H=512, W=640, C=32)
-# DCN layers of TransMVSNet's FeatureNet (3 heads of 3) × taps of a 3×3
-DCN_BWD_PER_STEP = 3 * 3 * 9
+DCN_TAPS = {"tap_stage3": (512, 640), "tap_stage2": (256, 320),
+            "tap_stage1": (128, 160)}
+# DCN layers of TransMVSNet's FeatureNet (3 heads of 3) × taps of a 3×3,
+# each a call of the tap design: its tile and spill kernels
+DCN_BWD_CALLS_PER_STEP = 3 * 3 * 9
+DCN_BWD_LAUNCHES_PER_CALL = 2
+DCN_BWD_PER_STEP = DCN_BWD_CALLS_PER_STEP * DCN_BWD_LAUNCHES_PER_CALL
 
 
 def dcn_case(N, H, W, C, P, dtype, with_scale, seed, edges):
@@ -1985,22 +1992,51 @@ def dcn_bwd_bytes(img, x, y, scale, g):
             + vectors), int(rows.numel())
 
 
+def dcn_autograd_times(img, x, y, scale, g):
+    """The sampler's forward, and its forward and backward through the
+    Function (``DCN_CUSTOM_VJP = True``) and through autograd of the corner
+    gathers (``False``), device ms."""
+    from diner_tpu_torch.mvs import dcn
+    ins = [t.detach().requires_grad_() for t in (img, x, y, scale)]
+
+    def fwd_bwd(flag):
+        def run():
+            dcn.DCN_CUSTOM_VJP = flag
+            out = dcn.bilinear_sample_pix(*ins)
+            return torch.autograd.grad(out, ins, g)
+        return run
+
+    def fwd():
+        with torch.no_grad():
+            return dcn.bilinear_sample_pix(img, x, y, scale)
+    try:
+        t = dict(forward_ms=device_time_ms(fwd),
+                 function_fwd_bwd_ms=device_time_ms(fwd_bwd(True)),
+                 autograd_fwd_bwd_ms=device_time_ms(fwd_bwd(False)))
+    finally:
+        dcn.DCN_CUSTOM_VJP = True
+    t["autograd_bwd_ms"] = t["autograd_fwd_bwd_ms"] - t["forward_ms"]
+    return t
+
+
 def phase_kernel_dcn_bwd():
     """The DCN sampler's backward kernel against its plain version on the
     card, all four outputs: edge positions (outside, on the borders, exact
     integers) at odd and even W and C = 5 and 32, with and without scale,
-    f32 and bf16; then the stage-3 training tap (``DCN_TAP``) in f32 and
-    bf16, timed beside the plain version and autograd of the corner
-    gathers (``DCN_CUSTOM_VJP = False``), with the bytes bound."""
-    from diner_tpu_torch.mvs import dcn
+    f32 and bf16 (P = 1001: the point design); then the three training
+    taps (``DCN_TAPS``, the tap design) in f32 and bf16, timed beside the
+    plain version, with the bytes bound and the share of corners that
+    spill; the stage-3 tap also beside autograd of the corner gathers
+    (``dcn_autograd_times``)."""
     from diner_tpu_torch.ops import dcn_cuda
     rows = []
     cases = [dict(N=2, H=7, W=W, C=C, P=1001, dtype=dt, with_scale=ws,
                   edges=True)
              for W in (8, 9) for C in (5, 32)
              for dt in (torch.float32, torch.bfloat16) for ws in (True, False)]
-    cases += [dict(**DCN_TAP, P=DCN_TAP["H"] * DCN_TAP["W"], dtype=dt,
-                   with_scale=True, edges=False)
+    cases += [dict(N=DCN_TAP["N"], H=H, W=W, C=DCN_TAP["C"], P=H * W,
+                   dtype=dt, with_scale=True, edges=False, tap=tap)
+              for tap, (H, W) in DCN_TAPS.items()
               for dt in (torch.float32, torch.bfloat16)]
     for i, case in enumerate(cases):
         img, x, y, scale, g = dcn_case(seed=20 + i, **{
@@ -2014,45 +2050,32 @@ def phase_kernel_dcn_bwd():
         errs = dcn_bwd_errors(got, ref)
         abs_err = max_err(got, ref)
         ok = all(e <= DCN_BWD_RTOL for e in errs)
-        row = dict(case="tap_stage3" if not case["edges"] else "edges",
-                   **{k: v for k, v in case.items() if k != "dtype"},
-                   dtype=str(case["dtype"]), err_d_img_f32=errs[0],
-                   err_d_xy_scale=errs[1:], max_abs_err=abs_err,
-                   rtol=DCN_BWD_RTOL)
+        row = dict(case=case.get("tap", "edges"),
+                   **{k: v for k, v in case.items()
+                      if k not in ("dtype", "tap")},
+                   dtype=str(case["dtype"]),
+                   design="tap" if dcn_cuda.tiled(img.shape, case["P"])
+                   else "point",
+                   err_d_img_f32=errs[0], err_d_xy_scale=errs[1:],
+                   max_abs_err=abs_err, rtol=DCN_BWD_RTOL)
         del got, ref
         if not case["edges"]:
             n_bytes, distinct = dcn_bwd_bytes(img, x, y, scale, g)
-            ins = [t.requires_grad_() for t in (img, x, y, scale)]
-
-            def autograd_bwd(flag):
-                def fwd_bwd():
-                    dcn.DCN_CUSTOM_VJP = flag
-                    out = dcn.bilinear_sample_pix(*ins)
-                    return torch.autograd.grad(out, ins, g)
-                return fwd_bwd
-
-            def fwd():
-                with torch.no_grad():
-                    return dcn.bilinear_sample_pix(img, x, y, scale)
-            try:
-                fwd_ms = device_time_ms(fwd)
-                function_ms = device_time_ms(autograd_bwd(True))
-                autograd_ms = device_time_ms(autograd_bwd(False))
-            finally:
-                dcn.DCN_CUSTOM_VJP = True
-            for t in ins:
-                t.requires_grad_(False)
+            spills = dcn_cuda.spilled_corners(img.shape, x, y)
+            valid = [c[2] for c in dcn_cuda.corner_meta(img.shape, x, y,
+                                                        None)[0]]
+            n_valid = sum(int(v.sum()) for v in valid)
+            row["spilled_corners"] = sum(int(s.sum()) for s in spills)
+            row["spill_share"] = row["spilled_corners"] / max(n_valid, 1)
+            if case["tap"] == "tap_stage3":
+                row.update(dcn_autograd_times(img, x, y, scale, g))
             row.update(
                 **times_ms(lambda: dcn_cuda.bilinear_sample_pix_bwd_kernel(
                     img, x, y, scale, g)),
                 plain_ms=device_time_ms(
                     lambda: dcn_cuda.bilinear_sample_pix_bwd_plain(
                         img, x, y, scale, g)),
-                library_ms=None, forward_ms=fwd_ms,
-                function_fwd_bwd_ms=function_ms,
-                autograd_fwd_bwd_ms=autograd_ms,
-                autograd_bwd_ms=autograd_ms - fwd_ms,
-                distinct_rows=distinct, bytes=n_bytes,
+                library_ms=None, distinct_rows=distinct, bytes=n_bytes,
                 bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
         emit("kernel_dcn_bwd", name="dcn_sample_bwd", **row)
         check(ok, f"DCN sampler backward kernel vs plain {row}")
@@ -2127,6 +2150,9 @@ def gather_path(model, cfg, batch, H, W):
 # ------------------------------------------------------------ NOVEL, kNN
 
 KNN_V = 26317           # FaceScape's mesh (models/novel/regressor.py)
+# a NOVEL training step's kNN shapes: the sampler's 4,096 rays × 1,000
+# candidates and deform_points' 4,096 × 40 samples
+KNN_RAYS, KNN_CANDIDATES, KNN_SAMPLES = 4096, 1000, 40
 NOVEL_HW = (256, 256)   # FaceScape's images, 2 source views
 NOVEL_NV = 2            # (scripts/variant_warm_bench.py:8-9)
 NOVEL_CONFIG = ROOT / "configs" / "train_novel_facescape.yaml"
@@ -2136,11 +2162,6 @@ NOVEL_WARM_STEPS = 5
 # the kNN's bound: 4 multiply-add-class FP32 operations a point-vertex
 # pair (3 for the dot product, 1 for d²), 2 FLOPs each
 KNN_FLOPS_PER_PAIR = 8
-# index disagreements between the kernel and its plain version are allowed
-# only where the two chosen vertices' exact (float64) squared distances
-# agree within this (coordinates of order 1: f32 rounding of |v|² − 2·p·v
-# is ~1e-6 there); with the same arithmetic in both none is expected
-KNN_DIST_TOL = 1e-5
 # row gathers of one NOVEL forward (sampler map, the sampler's offsets, the
 # samples' two offsets, 4 latent corners, 4 plane corners, the depth) and
 # NOVEL_PE's 8 PE-map corners; the backward is index_add_
@@ -2171,14 +2192,31 @@ def counted_cli(module, tag, setup=""):
 NOVEL_CLI = counted_cli("diner_tpu_torch.train.__main__", NOVEL_TAG)
 
 
-def knn_bound(SB, N, V):
-    """(bound ms, what bounds it): the operations (every pair) over the
-    FP32 rate, or the bytes (points and vertices read once, indices
-    written once) over the memory rate."""
-    ops_ms = 1e3 * SB * N * V * KNN_FLOPS_PER_PAIR / F32_FLOPS_PER_S
+def knn_bound(SB, N, V, pairs=None):
+    """(ms, what bounds it) for ``pairs`` point-vertex tests over the FP32
+    rate, or the bytes (points and vertices read once, indices written
+    once) over the memory rate, whichever is larger. By default ``pairs``
+    is one a point: any exact search tests at least each point's own
+    nearest vertex, so that is the function's bound, whatever the data and
+    however a kernel culls. ``pairs = SB·N·V`` gives the brute-force
+    figure."""
+    pairs = SB * N if pairs is None else pairs
+    ops_ms = 1e3 * pairs * KNN_FLOPS_PER_PAIR / F32_FLOPS_PER_S
     bytes_ms = 1e3 * SB * (N * 16 + V * 12) / HBM_BYTES_PER_S
     return ((ops_ms, "operations") if ops_ms >= bytes_ms
             else (bytes_ms, "bytes"))
+
+
+def knn_tested_pairs(SB, N, V, culled):
+    """The point-vertex tests a kernel run makes when it culls ``culled`` of
+    its (warp, tile) pairs: every vertex of a scanned tile for each of the
+    warp's 32 points, and each point's representatives. A measure of the
+    kernel's own work, not of the function's: no bound is made from it."""
+    from diner_tpu_torch.ops import knn_cuda
+    tiles = -(-V // knn_cuda.TILE)
+    scanned = round((1.0 - culled) * SB * -(-N // 32) * tiles)
+    return (scanned * 32 * knn_cuda.TILE
+            + SB * N * -(-V // knn_cuda.REP_STRIDE))
 
 
 def knn_compare(points, verts, offsets=None):
@@ -2215,19 +2253,23 @@ def knn_compare(points, verts, offsets=None):
     return row, got
 
 
-def knn_timed(points, verts, big):
+def knn_timed(points, verts, big, culled, plain=True):
     """``ms`` / ``call_ms`` of the kernel, ``plain_ms`` of the plain
     version and ``library_ms`` of ``torch.cdist(...).argmin(-1)`` in the
     plain version's chunks (no single PyTorch call computes a top-1
-    index). With ``big`` (a quarter second or more a call for the plain
-    version and cdist) those two are timed over 3 calls between CUDA
-    events, not in a graph, and the kernel's graph holds 5 calls."""
+    index). With ``big`` (a second or more a call for the plain version
+    and cdist) those two are timed over 1 call between CUDA events, not in
+    a graph, and the kernel's graph holds 5 calls. Without
+    ``plain`` only the kernel is timed. ``bound_ms`` is ``knn_bound``'s, from
+    the inputs alone; beside it stand the tests the kernel made
+    (``culled``: the share of (warp, tile) pairs it skipped) and their time
+    at the FP32 rate, and the brute-force figure (every pair tested)."""
     from diner_tpu_torch.ops import knn_cuda
 
     def kernel():
         return knn_cuda.knn1_kernel(points, verts)
 
-    def plain():
+    def plain_version():
         return knn_cuda.knn1_plain(points, verts)
 
     def library():
@@ -2235,20 +2277,29 @@ def knn_timed(points, verts, big):
                           .argmin(-1) for s in range(0, points.shape[1],
                                                      2048)], dim=1)
 
-    if big:
+    if big and not plain:
+        t = dict(ms=device_time_ms(kernel, n=5, replays=3),
+                 call_ms=cuda_time_ms(kernel, 5, 1))
+    elif big:
         t = dict(ms=device_time_ms(kernel, n=5, replays=3),
                  call_ms=cuda_time_ms(kernel, 5, 1),
-                 plain_ms=cuda_time_ms(plain, 3, 1),
-                 library_ms=cuda_time_ms(library, 3, 1),
-                 plain_timing="3 calls between CUDA events")
+                 plain_ms=cuda_time_ms(plain_version, 1, 1),
+                 library_ms=cuda_time_ms(library, 1, 1),
+                 plain_timing="1 call between CUDA events")
     else:
         t = dict(ms=device_time_ms(kernel, n=20), call_ms=cuda_time_ms(
                      kernel, 10, 2),
-                 plain_ms=device_time_ms(plain, n=5, replays=3),
+                 plain_ms=device_time_ms(plain_version, n=5, replays=3),
                  library_ms=device_time_ms(library, n=5, replays=3),
                  plain_timing="CUDA graph of 5 calls")
-    bound, by = knn_bound(*points.shape[:2], verts.shape[1])
-    return dict(t, bound_ms=bound, bound_by=by)
+    SB, N = points.shape[:2]
+    V = verts.shape[1]
+    bound, by = knn_bound(SB, N, V)
+    pairs = knn_tested_pairs(SB, N, V, culled)
+    return dict(t, bound_ms=bound, bound_by=by, tested_pairs=pairs,
+                tested_pairs_ms=1e3 * pairs * KNN_FLOPS_PER_PAIR
+                / F32_FLOPS_PER_S,
+                brute_force_ms=knn_bound(SB, N, V, SB * N * V)[0])
 
 
 def knn_edge_cases(device, seed=0):
@@ -2259,7 +2310,9 @@ def knn_edge_cases(device, seed=0):
     first NaN distance wins, as ``argmin``'s), and three tiles with an
     infinite vertex, a huge one (|v|² overflows) and a NaN one, and a huge
     point (its products overflow): the kernel's NaN-aware scan runs on
-    some tiles and not on others."""
+    some tiles and not on others; and points equidistant (bit for bit)
+    from two mirrored vertices in different tiles, where the lower index
+    must win though the tiles come out of index order."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rand(*shape):
@@ -2288,6 +2341,14 @@ def knn_edge_cases(device, seed=0):
     inf_p = rand(1, 500, 3)
     inf_p[0, 10] = 1e20
     inf_expected = torch.where(inf_p[..., 0] > 0, 300, 4100).int()
+    # vertex i and i + 600 mirrored in y, |y| ≥ 0.3 (other Morton halves,
+    # so other tiles); points at y = 0 tie exactly between the two
+    half = rand(1, 600, 3)
+    half[..., 1] = torch.sign(half[..., 1]) * (0.3 + half[..., 1].abs())
+    mirrored = torch.cat([half, half * torch.tensor([1.0, -1.0, 1.0],
+                                                    device=device)], dim=1)
+    on_plane = rand(1, 500, 3)
+    on_plane[..., 1] = 0.0
     return {
         "n1001_v2049": (rand(1, 1001, 3), v, None),
         "n257_v1": (rand(1, 257, 3), v[:, :1],
@@ -2300,7 +2361,38 @@ def knn_edge_cases(device, seed=0):
         "n0": (rand(1, 0, 3), v, None),
         "nan_inputs": (nan_p, nan_v, nan_expected),
         "nonfinite_tiles": (inf_p, inf_v, inf_expected),
+        "mirror_ties": (on_plane, mirrored, None),
     }
+
+
+def knn_ray_points(device, n_rays=None, n_cand=None, V=None, seed=9):
+    """(points, vertices) as NOVEL's sampler makes them: the ``n_cand``
+    stratified candidates of each of ``n_rays`` consecutive target rays
+    through the middle of the sphere fixture's 256×256 view, ray-major
+    (SB = 1), between the config's znear and zfar; ``V`` points of the
+    sphere's surface as the mesh."""
+    from diner_tpu_torch.data.synthetic_dataset import SphereDataset
+    from diner_tpu_torch.ops.sampling import stratified_z
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.diner import target_rays
+    n_rays = KNN_RAYS if n_rays is None else n_rays
+    n_cand = KNN_CANDIDATES if n_cand is None else n_cand
+    V = KNN_V if V is None else V
+    g = torch.Generator(device=device).manual_seed(seed)
+    verts = torch.from_numpy(SphereDataset._surface_points(V, 0))[None].to(
+        device)
+    b = {k: torch.from_numpy(v[None]).to(device) for k, v in SphereDataset(
+        "val", n=1, H=NOVEL_HW[0], W=NOVEL_HW[1], nv=NOVEL_NV)[0].items()
+        if isinstance(v, np.ndarray)}
+    H, W = NOVEL_HW
+    rays = target_rays(load_train_config(NOVEL_CONFIG).diner, b, H, W)
+    mid = H * W // 2 - n_rays // 2
+    chunk = rays[:, mid:mid + n_rays].contiguous()
+    u = torch.rand((1, n_rays, n_cand), generator=g, device=device)
+    z = stratified_z(chunk, n_cand, u)
+    points = (chunk[..., None, :3] + z[..., None]
+              * chunk[..., None, 3:6]).reshape(1, -1, 3)
+    return points, verts
 
 
 def phase_kernel_knn():
@@ -2309,16 +2401,11 @@ def phase_kernel_knn():
     2³¹: 716 million points, V = 2, the answer known from the sign of x),
     and the NOVEL step's shapes on FaceScape's 26,317 vertices (the
     sphere's surface points): the sampler's 4,096 rays × 1,000 candidates
-    at random points and ``deform_points``' 4,096 × 40 samples, each timed,
-    and the candidates of one 4,096-ray chunk of the 256×256 render (the
-    sampler's shape, so only compared). Every index
-    disagreement must be a distance tie within ``KNN_DIST_TOL``; the
-    deformed points equal where the indices agree."""
-    from diner_tpu_torch.data.synthetic_dataset import SphereDataset
+    and ``deform_points``' 4,096 × 40 samples, each on ray-ordered points
+    as the path makes them (``knn_ray_points``) and uniform in a cube.
+    Every index equal, the deformed points equal; each case timed, with
+    the share of (warp, tile) pairs the kernel culled."""
     from diner_tpu_torch.ops import knn_cuda
-    from diner_tpu_torch.ops.sampling import stratified_z
-    from diner_tpu_torch.train.config import load_train_config
-    from diner_tpu_torch.train.diner import target_rays
     rows = []
     for name, (pts, verts, expected) in knn_edge_cases("cuda").items():
         row, got = knn_compare(pts, verts)
@@ -2346,35 +2433,30 @@ def phase_kernel_knn():
     torch.cuda.empty_cache()
 
     g = torch.Generator(device="cuda").manual_seed(9)
-    verts = torch.from_numpy(SphereDataset._surface_points(KNN_V, 0))[
-        None].cuda()
-    offsets = torch.randn((1, KNN_V, 3), generator=g, device="cuda") * 0.02
-    b = {k: torch.from_numpy(v[None]).cuda() for k, v in SphereDataset(
-        "val", n=1, H=NOVEL_HW[0], W=NOVEL_HW[1], nv=NOVEL_NV)[0].items()
-        if isinstance(v, np.ndarray)}
-    H, W = NOVEL_HW
-    # the config's znear / zfar
-    rays = target_rays(load_train_config(NOVEL_CONFIG).diner, b, H, W)
-    mid = H * W // 2 - 2048
-    chunk = rays[:, mid:mid + 4096].contiguous()
-    u = torch.rand((1, 4096, 1000), generator=g, device="cuda")
-    z = stratified_z(chunk, 1000, u)
-    # (name, points, timing: None, or big as knn_timed takes it); the
-    # render chunk has the sampler's shape, so it is compared, not timed
+    ray_points, verts = knn_ray_points("cuda")
+    deform_rays = knn_ray_points("cuda", n_cand=KNN_SAMPLES, seed=10)[0]
+    offsets = torch.randn(verts.shape, generator=g, device="cuda") * 0.02
+    # (name, points, big as knn_timed takes it): the path's own ray-ordered
+    # points at the sampler's shape (render_chunk: 4,096 rays × 1,000
+    # candidates) and deform_points' (4,096 × 40 samples), and the same
+    # shapes uniform in a cube around the sphere, the worst case for the
+    # tile cull; the plain version and cdist, seconds a call at the
+    # sampler's shape, are timed at render_chunk only
     cases = (
-        ("sampler", torch.rand((1, 4096 * 1000, 3), generator=g,
+        ("render_chunk", ray_points, True),
+        ("sampler", torch.rand(ray_points.shape, generator=g,
                                device="cuda") * 1.2 - 0.6, True),
-        ("deform", torch.rand((1, 4096 * 40, 3), generator=g,
-                              device="cuda") * 1.2 - 0.6, False),
-        ("render_chunk", (chunk[..., None, :3] + z[..., None]
-                          * chunk[..., None, 3:6]).reshape(1, -1, 3), None))
+        ("deform_rays", deform_rays, False),
+        ("deform", torch.rand(deform_rays.shape, generator=g,
+                              device="cuda") * 1.2 - 0.6, False))
     for name, pts, big in cases:
         row, _ = knn_compare(pts, verts, offsets)
-        if big is not None:
-            row.update(knn_timed(pts, verts, big))
+        _, culled = knn_cuda.knn1_kernel_culled(pts, verts)
+        row.update(knn_timed(pts, verts, big, culled,
+                             plain=name != "sampler"), tiles_culled=culled)
         row["case"] = name
         emit("kernel_knn", **row)
-        check(row["distance_gap"] <= KNN_DIST_TOL
+        check(row["index_disagreements"] == 0
               and row["deformed_max_abs_err"] == 0.0,
               f"kNN kernel vs plain at {name}: {row}")
         rows.append(row)
@@ -3769,11 +3851,12 @@ def phase_mvs_train(smi):
 
 
 def mvs_train_profile():
-    """One warm f32 training step at the CLI's defaults under the profiler
-    (``mvs_train_profile``): the device's idle share, the top ops and each
-    port kernel's device time and launches; then 3 more steps timed
-    between CUDA events (``utils/profiling.py:time_fn``) in this process,
-    TF32 off (``mvs_train_step``)."""
+    """One warm training step at the CLI's defaults under the profiler, f32
+    (``mvs_train_profile``, then 3 more steps timed between CUDA events,
+    ``utils/profiling.py:time_fn``, TF32 off: ``mvs_train_step``) and bf16
+    (``mvs_train_profile_bf16``): the device's idle share, the top ops and
+    each port kernel's device time and launches (the DCN backward's must be
+    ``DCN_BWD_PER_STEP``)."""
     from diner_tpu_torch.mvs.datasets import MVSDTUDataset
     from diner_tpu_torch.mvs.train import (MVSTrainConfig, batch_to_device,
                                            create_mvs_state,
@@ -3781,16 +3864,22 @@ def mvs_train_profile():
     from diner_tpu_torch.data.loader import collate
     ds = MVSDTUDataset(MVS_FIXTURE, MVS_FIXTURE / "list.txt", "train")
     batch = batch_to_device(collate([ds[0]]), "cuda")
-    cfg = MVSTrainConfig()
-    state = create_mvs_state(cfg, seed=0, device="cuda")
-    step = make_mvs_train_step(state, cfg)
-    step(batch)
-    profile_once("mvs_train_profile", lambda: step(batch))
-    timed = time_fn(step, batch, warmup=0, iters=3)
-    emit("mvs_train_step", **timed)
-    check(state.step == 5, f"in-process train steps: {state.step}")
-    del state, step, batch
-    torch.cuda.empty_cache()
+    for dtype, phase in (("float32", "mvs_train_profile"),
+                         ("bfloat16", "mvs_train_profile_bf16")):
+        cfg = MVSTrainConfig(compute_dtype=dtype)
+        state = create_mvs_state(cfg, seed=0, device="cuda")
+        step = make_mvs_train_step(state, cfg)
+        step(batch)
+        port = profile_once(phase, lambda: step(batch))
+        check(port["dcn_sample_bwd"]["launches"] == DCN_BWD_PER_STEP,
+              f"{phase}: DCN backward launches {port['dcn_sample_bwd']}, "
+              f"expected {DCN_BWD_PER_STEP}")
+        if dtype == "float32":
+            timed = time_fn(step, batch, warmup=0, iters=3)
+            emit("mvs_train_step", **timed)
+            check(state.step == 5, f"in-process train steps: {state.step}")
+        del state, step
+        torch.cuda.empty_cache()
 
 
 def mvs_small_batch(H, W, V, seed):
@@ -4881,7 +4970,7 @@ def main():
             "library_ms": library_ms,
         }
 
-    knn_sampler = next(r for r in knn_rows if r["case"] == "sampler")
+    knn_main = next(r for r in knn_rows if r["case"] == "render_chunk")
     dcn_f32 = next(r for r in dcn_rows if r["case"] == "tap_stage3"
                    and r["dtype"] == "torch.float32")
     # kernel C's row: one eval latent corner (the path's largest gather
@@ -4945,19 +5034,32 @@ def main():
              function_fwd_bwd_ms=dcn_f32["function_fwd_bwd_ms"],
              autograd_fwd_bwd_ms=dcn_f32["autograd_fwd_bwd_ms"],
              launches_per_step=paths["mvs_train_f32"][3] / MVS_TRAIN_STEPS,
-             cases=[{k: r[k] for k in ("case", "dtype", "W", "C",
-                                       "with_scale", "err_d_img_f32",
-                                       "err_d_xy_scale") + timed if k in r}
+             launches_per_call=DCN_BWD_LAUNCHES_PER_CALL,
+             spill_share=dcn_f32["spill_share"],
+             cases=[{k: r[k] for k in ("case", "design", "dtype", "H", "W",
+                                       "C", "with_scale", "err_d_img_f32",
+                                       "err_d_xy_scale", "spill_share")
+                     + timed if k in r}
                     for r in dcn_rows]),
         # the train step's sampler shape (4,096 rays × 1,000 candidates on
-        # 26,317 vertices); deform_points' and a render chunk's beside it
-        dict(entry("knn1", knn_rows, knn_sampler, "diner_tpu/ops/knn.py:16",
-                   4, library_ms=knn_sampler["library_ms"]),
+        # 26,317 vertices) on ray-ordered points, as the path makes them;
+        # the uniform cube and deform_points' shape beside it
+        dict(entry("knn1", knn_rows, knn_main, "diner_tpu/ops/knn.py:16",
+                   4, library_ms=knn_main["library_ms"]),
+             main_case=knn_main["case"],
+             tiles_culled=knn_main["tiles_culled"],
+             tested_pairs=knn_main["tested_pairs"],
+             tested_pairs_ms=knn_main["tested_pairs_ms"],
+             brute_force_ms=knn_main["brute_force_ms"],
              library_ms_note="no single PyTorch call computes a top-1 "
              "index: torch.cdist(points, vertices).argmin(-1) in the plain "
-             "version's 2,048-point chunks; at the sampler and render-chunk "
-             "shapes plain_ms and library_ms are 3 calls between CUDA "
-             "events, not a graph",
+             "version's 2,048-point chunks; at the sampler's shape plain_ms "
+             "and library_ms are 1 call between CUDA events, not a graph; "
+             "bound_ms is the larger of the bytes (points, vertices and "
+             "indices once) and one point-vertex test a point, from the "
+             "inputs alone; tested_pairs_ms is the tests the kernel made "
+             "(tiles it did not cull, and the representatives) at the FP32 "
+             "rate and brute_force_ms every pair's, neither a bound",
              launches_per_step={p: paths[p][4] / NOVEL_WARM_STEPS
                                 for p in ("novel_train", "novel_pe_train")},
              index_disagreements=sum(r["index_disagreements"]
@@ -4965,7 +5067,9 @@ def main():
              distance_gap=max(r.get("distance_gap", 0.0) for r in knn_rows),
              cases=[{k: r[k] for k in (
                  "case", "SB", "N", "V", "index_disagreements",
-                 "distance_gap", "deformed_max_abs_err", "plain_timing")
+                 "distance_gap", "deformed_max_abs_err", "plain_timing",
+                 "tiles_culled", "tested_pairs", "tested_pairs_ms",
+                 "brute_force_ms")
                  + timed if k in r} for r in knn_rows]),
         # the multiface frame (2048×1334, 50,400 faces); the edge cases'
         # exactness beside it

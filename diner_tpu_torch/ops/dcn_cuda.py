@@ -19,10 +19,15 @@ output's cotangent g (N, P, C), the backward returns
 :func:`bilinear_sample_pix_bwd` runs the plain version,
 :func:`bilinear_sample_pix_bwd_plain` (per-corner ``index_add_`` into an f32
 canvas and ``(g · rows).sum(-1)``), for CPU tensors and launches the
-kernel for CUDA ones, or raises. :func:`corner_meta` is the corner math
-the forward and both backwards share. Both versions take ``f32_d_img``:
-``d_img`` is then the f32 canvas before its cast, so that a bf16 image's
-gradients can be compared before one rounding hides the weights' own.
+kernel for CUDA ones, or raises. A DCN tap's call (P = H·W: the points are
+the pixel grid plus offsets) takes the kernel's tap design, which sums the
+canvas on chip a tile at a time and writes each row once, and adds the
+corners that land beyond a tile's ring (:func:`spilled_corners`) in a
+second launch; any other shape takes its point design (:func:`tiled`).
+:func:`corner_meta` is the corner math the forward and both backwards
+share. Both versions take ``f32_d_img``: ``d_img`` is then the f32 canvas
+before its cast, so that a bf16 image's gradients can be compared before
+one rounding hides the weights' own.
 """
 
 from __future__ import annotations
@@ -34,12 +39,19 @@ import torch
 
 from diner_tpu_torch.ops import cuda_build
 
-# kernel launches since the count was last set to 0 (read by chip_smoke.py)
+# kernel launches since the count was last set to 0 (read by chip_smoke.py):
+# two a call in the tap design (tiles, spill), one in the point design
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
+             _P]
 DTYPES = (torch.float32, torch.bfloat16)
+# the tap design (csrc/dcn_sample_bwd.cu: kTileH, kTileW, kRing, kMaxTileC)
+TILE_H, TILE_W = 8, 32
+RING = 4
+MAX_TILE_C = 32
+MAX_VIEWS = 65535  # gridDim.y
 
 
 @functools.cache
@@ -95,6 +107,35 @@ def _rest(corners, dw, wx1, wy1, scale):
         d_scale = sum(torch.where(c[2], c[3], zero) * d
                       for c, d in zip(corners, dw))
     return d_x, d_y, d_scale
+
+
+def tiled(img_shape, P) -> bool:
+    """Does a call take the kernel's tap design (two launches) rather than
+    its point design (one)? The points must be the pixel grid (P = H·W)
+    and a lane's share of a row (C / 4 channels) must fit its registers."""
+    N, H, W, C = img_shape
+    return (P == H * W and P < 2 ** 31 and C <= MAX_TILE_C
+            and N <= MAX_VIEWS)
+
+
+def spilled_corners(img_shape, x, y):
+    """(N, P) bool per corner, in :func:`corner_meta`'s order: the valid
+    corners of a tap-layout call (P = H·W, point p at pixel p) whose point
+    lies beyond the ring of the tile that holds the corner, which the tap
+    design adds in its second launch."""
+    N, H, W, _ = img_shape
+    pix = torch.arange(H * W, device=x.device)
+    py, px = (pix // W)[None], (pix % W)[None]
+    corners, _ = corner_meta(img_shape, x, y, None)
+    out = []
+    for idx, _, valid, _ in corners:
+        q = idx % (H * W)
+        ty = q // W // TILE_H * TILE_H
+        tx = q % W // TILE_W * TILE_W
+        ring = ((py >= ty - RING) & (py < ty + TILE_H + RING)
+                & (px >= tx - RING) & (px < tx + TILE_W + RING))
+        out.append(valid & ~ring)
+    return out
 
 
 def bilinear_sample_pix_bwd_plain(img, x, y, scale, g, f32_d_img=False):
@@ -154,7 +195,10 @@ def bilinear_sample_pix_bwd_kernel(img, x, y, scale, g, f32_d_img=False):
     x = x.float().contiguous()
     y = y.float().contiguous()
     s = scale.float().contiguous() if scale is not None else None
-    acc = torch.zeros((N * H * W, C), dtype=torch.float32, device=img.device)
+    tap = tiled(img.shape, P)
+    # the tap design writes every canvas row; the point design adds into it
+    acc = (torch.empty if tap else torch.zeros)(
+        (N * H * W, C), dtype=torch.float32, device=img.device)
     d_x = torch.empty((N, P), dtype=torch.float32, device=img.device)
     d_y = torch.empty_like(d_x)
     d_s = torch.empty_like(d_x) if scale is not None else None
@@ -163,11 +207,11 @@ def bilinear_sample_pix_bwd_kernel(img, x, y, scale, g, f32_d_img=False):
         s.data_ptr() if s is not None else None, g.data_ptr(),
         acc.data_ptr(), d_x.data_ptr(), d_y.data_ptr(),
         d_s.data_ptr() if d_s is not None else None, N, H, W, C, P,
-        img.element_size())
+        img.element_size(), int(tap))
     if err != 0:
         raise RuntimeError(f"dcn_sample_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
+    launches += 2 if tap else 1
     d_img = acc.reshape(N, H, W, C)
     return (d_img if f32_d_img else d_img.to(img.dtype)), d_x, d_y, d_s
 

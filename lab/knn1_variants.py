@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Design variants of the top-1 kNN kernel, timed on one NVIDIA GPU.
+"""The top-1 kNN kernel's designs, timed in turns on one NVIDIA GPU.
 
-Builds ``lab/knn1_variants.cu`` (which includes the package's
-``csrc/knn1.cu``) with ``nvcc`` into ``build/lab/`` (git-ignored), checks
-every variant against the plain ``knn_cuda.knn1_plain`` (indices equal) at
-the NOVEL step's shapes on FaceScape's 26,317 vertices and at
-``chip_smoke.knn_edge_cases``' non-finite cases, and times each at the
-NOVEL step's shapes (device time: a CUDA graph of 5 calls, replayed 3
-times between CUDA events). Variants: the package's launcher (the
-NaN-aware compare only on tiles where a NaN can arise), the NaN-aware
-compare on every pair, and the strict ``d2 < best`` on every pair (a NaN
-never wins: not ``argmin``'s rule, so it is expected to differ on the
-non-finite cases).
+Builds ``lab/knn1_variants.cu`` (the package's ``csrc/knn1.cu``, the tile
+cull, with the first, brute-force design beside it) with ``nvcc`` into
+``build/lab/`` (git-ignored), checks every variant against the plain
+``knn_cuda.knn1_plain`` (indices equal) on FaceScape's 26,317 vertices and
+on ``chip_smoke.knn_edge_cases``' non-finite and mirrored-tie cases, and
+times them at the NOVEL step's shapes: the sampler's 4,096 rays × 1,000
+candidates and ``deform_points``' 4,096 × 40 samples, each on ray-ordered
+points as the path makes them (``chip_smoke.knn_ray_points``) and uniform
+in a cube. Device time: a CUDA graph of 5 calls, replayed 3 times between
+CUDA events. The turns are brute force, package, package, brute force,
+where "package" is the wrapper ``knn_cuda.knn1_kernel`` (the tile plan's
+tensor ops and the kernel); the kernel alone on a ready plan, the plan
+alone, the share of tiles culled and the brute-force design's NaN
+variants (the NaN-aware compare on every pair; the strict ``d2 < best``,
+which is expected to differ on the non-finite cases) follow.
 
 Prints one JSON line per case and writes them to
 ``outputs/lab/knn1_variants.json`` (git-ignored). Not part of the package
@@ -32,13 +36,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import KNN_V, device_time_ms, knn_edge_cases  # noqa: E402
-from diner_tpu_torch.data.synthetic_dataset import SphereDataset  # noqa
+from chip_smoke import (KNN_SAMPLES, device_time_ms,  # noqa: E402
+                        knn_edge_cases, knn_ray_points)
 from diner_tpu_torch.ops import cuda_build, knn_cuda  # noqa: E402
 
 BUILD = ROOT / "build" / "lab"
 OUT = ROOT / "outputs" / "lab" / "knn1_variants.json"
-VARIANTS = {"package": 0, "nan_check_every_pair": 1, "strict_less": 2}
+VARIANTS = {"package_kernel": 0, "brute_force": 1,
+            "brute_force_nan_check_every_pair": 2,
+            "brute_force_strict_less": 3}
+P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def build():
@@ -48,7 +55,7 @@ def build():
                     "-o", str(lib), str(ROOT / "lab" / "knn1_variants.cu")],
                    check=True, capture_output=True)
     fn = ctypes.CDLL(str(lib)).lab
-    fn.argtypes = [ctypes.c_int, *knn_cuda._ARGTYPES]
+    fn.argtypes = [I, P, P, P, P, P, P, P, L, I, I, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -64,39 +71,63 @@ def main():
     print(json.dumps({"device": smi, "build_s": time.perf_counter() - t0}),
           flush=True)
 
-    def run(v, p, verts):
-        out = torch.empty(p.shape[:2], dtype=torch.int32, device="cuda")
-        err = cuda_build.launch(lab, p.device, v, p.data_ptr(),
-                                verts.data_ptr(), out.data_ptr(),
-                                p.shape[1], verts.shape[1], p.shape[0])
-        if err:
-            raise RuntimeError(f"variant {v}: CUDA error {err}")
-        return out
+    def runner(variant, p, verts):
+        plan = knn_cuda.tile_plan(verts)
 
+        def run():
+            out = torch.empty(p.shape[:2], dtype=torch.int32, device="cuda")
+            err = cuda_build.launch(
+                lab, p.device, variant, p.data_ptr(), verts.data_ptr(),
+                plan["verts"].data_ptr(), plan["vidx"].data_ptr(),
+                plan["boxes"].data_ptr(), plan["reps"].data_ptr(),
+                out.data_ptr(), p.shape[1], verts.shape[1], knn_cuda.TILE,
+                plan["reps"].shape[1], p.shape[0])
+            if err:
+                raise RuntimeError(f"variant {variant}: CUDA error {err}")
+            return out
+        return run
+
+    ray, verts = knn_ray_points("cuda")
     g = torch.Generator(device="cuda").manual_seed(9)
-    verts = torch.from_numpy(SphereDataset._surface_points(KNN_V, 0))[
-        None].cuda()
-    cases = {name: (p, v, True) for name, (p, v, _) in
+    cases = {name: (p, v, False) for name, (p, v, _) in
              knn_edge_cases("cuda").items()
-             if name in ("nan_inputs", "nonfinite_tiles")}
-    for name, n in (("sampler", 4096 * 1000), ("deform", 4096 * 40)):
-        cases[name] = (torch.rand((1, n, 3), generator=g, device="cuda")
-                       * 1.2 - 0.6, verts, False)
+             if name in ("nan_inputs", "nonfinite_tiles", "mirror_ties")}
+    cases["render_chunk"] = (ray, verts, True)
+    cases["sampler"] = (torch.rand(ray.shape, generator=g, device="cuda")
+                        * 1.2 - 0.6, verts, True)
+    deform_rays = knn_ray_points("cuda", n_cand=KNN_SAMPLES, seed=10)[0]
+    cases["deform_rays"] = (deform_rays, verts, True)
+    cases["deform"] = (torch.rand(deform_rays.shape, generator=g,
+                                  device="cuda") * 1.2 - 0.6, verts, True)
     rows, bad = [], []
-    for name, (p, v, nonfinite) in cases.items():
+    for name, (p, v, timed) in cases.items():
         ref = knn_cuda.knn1_plain(p, v)
         row = {"case": name, "N": p.shape[1], "V": v.shape[1],
                "device": smi}
-        for vname, idx in VARIANTS.items():
-            got = run(idx, p, v)
+        fns = {vname: runner(idx, p, v) for vname, idx in VARIANTS.items()}
+        fns["package"] = lambda: knn_cuda.knn1_kernel(p, v)  # noqa: B023
+        fns["plan"] = lambda: knn_cuda.tile_plan(v)  # noqa: B023
+        for vname, fn in fns.items():
+            if vname == "plan":
+                continue
+            got = fn()
             torch.cuda.synchronize()
-            r = {"index_disagreements": int((got != ref).sum())}
-            if not nonfinite:
-                r["ms"] = device_time_ms(lambda: run(idx, p, v), n=5,
-                                         replays=3)
-            row[vname] = r
-            if r["index_disagreements"] and vname != "strict_less":
+            n_diff = int((got != ref).sum())
+            row[vname] = {"index_disagreements": n_diff}
+            if n_diff and not (vname == "brute_force_strict_less"
+                               and name in ("nan_inputs", "nonfinite_tiles")):
                 bad.append((name, vname))
+        if timed:
+            _, row["tiles_culled"] = knn_cuda.knn1_kernel_culled(p, v)
+            turns = []
+            for vname in ("brute_force", "package", "package", "brute_force",
+                          "package_kernel", "plan",
+                          "brute_force_nan_check_every_pair",
+                          "brute_force_strict_less"):
+                ms = device_time_ms(fns[vname], n=5, replays=3)
+                turns.append([vname, ms])
+                row.setdefault(vname, {}).setdefault("ms", []).append(ms)
+            row["turns"] = turns
         print(json.dumps(row), flush=True)
         rows.append(row)
     OUT.parent.mkdir(parents=True, exist_ok=True)

@@ -22,8 +22,14 @@ g_w, strided or contiguous rgb, with samples at alpha ~ 1 or without.
 The top-1 kNN must return its plain version's indices exactly (both
 compute |v|² − 2·p·v with the same roundings): N and V no multiples of the
 block or the tile, V = 1, duplicated vertices (the first copy), exact
-ties, two scenes with different vertex sets, strided points, N = 0
-(``chip_smoke.knn_edge_cases``, which ``kernel_knn`` runs too).
+ties, two scenes with different vertex sets, strided points, N = 0, ties
+between mirrored vertices in different tiles
+(``chip_smoke.knn_edge_cases``, which ``kernel_knn`` runs too), and on
+ray-ordered points, culling the share of tiles the CPU emulation of its
+plan culls (``tests/test_torch_kernel_plans.py``). The DCN backward's tap
+design (P = H·W, two launches) must match the plain version at odd H and
+W, C = 5 and 32, f32 and bf16, with offsets that spill and with every
+point spilled.
 Kernel R (the mesh z-buffer) must equal its plain version bit for bit on
 ``chip_smoke.rasterize_edge_cases`` (both windings, |denom| on both sides
 of 1e-12, a collapsed face, vertices at and behind znear and at z = 0,
@@ -250,6 +256,58 @@ def test_dcn_sample_bwd_kernel_edges(cuda, W, C, dtype, with_scale):
         err = (a - b).abs().max() / b.abs().max()
         assert err <= DCN_BWD_TOL, (i, float(err))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [5, 32])
+@pytest.mark.parametrize("spread", ["grid", "spills", "all_spill"])
+def test_dcn_sample_bwd_kernel_tap_design(cuda, dtype, C, spread):
+    """The tap design (P = H·W) against the plain version: the pixel grid
+    plus N(0, 1.5) offsets, N(0, 4) offsets (some corners beyond the
+    ring) and every point 20 rows down (every valid corner a spill)."""
+    from diner_tpu_torch.ops import dcn_cuda
+    from test_torch_kernel_plans import dcn_tap_case
+    std, shift = {"grid": (1.5, 0.0), "spills": (4.0, 0.0),
+                  "all_spill": (0.3, 20.0)}[spread]
+    args = [t.to(cuda) for t in dcn_tap_case(2, 29, 37, C, dtype, std,
+                                              shift_y=shift, seed=C)]
+    img, x, y, scale, gout = args
+    assert dcn_cuda.tiled(img.shape, x.shape[1])
+    before = dcn_cuda.launches
+    got = dcn_cuda.bilinear_sample_pix_bwd_kernel(*args, f32_d_img=True)
+    torch.cuda.synchronize()
+    assert dcn_cuda.launches == before + 2
+    ref = dcn_cuda.bilinear_sample_pix_bwd_plain(*args, f32_d_img=True)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        err = (a - b).abs().max() / b.abs().max()
+        assert err <= DCN_BWD_TOL, (i, float(err))
+    if spread != "grid":
+        assert sum(int(s.sum()) for s in dcn_cuda.spilled_corners(
+            img.shape, x, y)) > 0
+    # without scale, and d_img in the image dtype
+    got = dcn_cuda.bilinear_sample_pix_bwd_kernel(img, x, y, None, gout)
+    ref = dcn_cuda.bilinear_sample_pix_bwd_plain(img, x, y, None, gout,
+                                                 f32_d_img=True)
+    assert got[0].dtype == dtype and got[3] is None
+    err = (got[0].float() - ref[0]).abs().max() / ref[0].abs().max()
+    assert err <= (1e-5 if dtype == torch.float32 else 2 ** -8)
+
+
+@pytest.mark.cuda
+def test_knn1_kernel_culls_as_its_plan(cuda):
+    """Ray-ordered points: the kernel's indices equal the plain version's
+    and it culls the share of (warp, tile) pairs the CPU emulation culls
+    (the kernel's lb may round otherwise by a few ulps: 1 % apart)."""
+    from chip_smoke import knn_ray_points
+    from diner_tpu_torch.ops import knn_cuda
+    from test_torch_kernel_plans import knn1_cull_emulation
+    points, verts = knn_ray_points("cpu", n_rays=48, n_cand=128, V=3000)
+    _, want = knn1_cull_emulation(points, verts)
+    got, culled = knn_cuda.knn1_kernel_culled(points.to(cuda),
+                                              verts.to(cuda))
+    assert torch.equal(got.cpu(), knn_cuda.knn1_plain(points, verts))
+    assert abs(culled - want) < 0.01, (culled, want)
 
 
 @pytest.mark.cuda
