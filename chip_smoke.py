@@ -4088,11 +4088,16 @@ RASTER_HW = (2048, 1334)  # multiface's frames (scripts/preprocess_multiface.py)
 # (2) and the inside test (3); a covered pair adds the depth (3 divisions, 2
 # sums, the clamp, 1 division), not counted
 RASTER_OPS_PER_PAIR = 15
-RASTER_TILE = 16          # csrc/rasterize_depth.cu's kTile
-# kernel R's launches per call with F > 0: its setup kernel, then its
-# raster kernel (ops/rasterize_cuda.py)
-RASTER_LAUNCHES_PER_CALL = 2
+# kernel R's launches per call with F > 0: its bin, scan, scatter and tile
+# kernels (ops/rasterize_cuda.py)
+RASTER_LAUNCHES_PER_CALL = 4
 HEAD_LAT, HEAD_LON = 126, 200  # 50,400 faces, 25,202 vertices
+# kernel R's dense-mesh case: the head at 20× the faces (1,008,000 faces,
+# 504,002 vertices), a stand-in for a full-resolution raw scan
+DENSE_LAT, DENSE_LON = 630, 800
+# the same two sizes without poles (cube_head_mesh): 50,400 faces, 25,986
+# vertices, and 1,008,000 faces, 507,486 vertices
+CUBE_HEAD, CUBE_DENSE = (60, 75), (280, 310)
 MF_DIR = OUT_DIR / "multiface"
 MF_SUBJECT = "m--20200101--0000--0000000--GHS"
 MF_SEQ = "SEQ1"
@@ -4111,38 +4116,87 @@ FS_CROP = 256
 FS_C_PER_VIEW = 5
 
 
-def head_mesh(frame=0, centre=(0.0, 0.0, 1000.0)):
-    """A closed head-sized mesh in mm: an ellipsoid of radii 80 / 110 / 95
-    with a nose and brow ridge, ``HEAD_LAT`` rings of ``HEAD_LON``
-    vertices and two poles (50,400 faces, consistently wound), turned by
-    3° about y per ``frame`` → (verts (V, 3) f32, faces (F, 3) int32)."""
-    lat = np.pi * (np.arange(1, HEAD_LAT + 1) / (HEAD_LAT + 1))
-    lon = 2 * np.pi * np.arange(HEAD_LON) / HEAD_LON
-    th, ph = np.meshgrid(lat, lon, indexing="ij")
+def head_radius(th, ph):
+    """The head's radial factor at polar angle ``th`` from −y and azimuth
+    ``ph`` (0 at +z): 1, with a nose and brow ridge at ph = π."""
     front = np.exp(-((ph - np.pi) ** 2 / 0.05 + (th - 1.75) ** 2 / 0.03))
     brow = np.exp(-((ph - np.pi) ** 2 / 0.4 + (th - 1.25) ** 2 / 0.01))
-    r = 1 + 0.25 * front + 0.05 * brow
+    return 1 + 0.25 * front + 0.05 * brow
+
+
+def posed(pts, frame, centre):
+    """Head points (mm) turned by 3° about y per ``frame``, moved to
+    ``centre`` → f32."""
+    a = np.deg2rad(3.0 * frame)
+    rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]])
+    return (pts @ rot.T + np.asarray(centre)).astype(np.float32)
+
+
+def head_mesh(frame=0, centre=(0.0, 0.0, 1000.0), n_lat=HEAD_LAT,
+              n_lon=HEAD_LON):
+    """A closed head-sized mesh in mm: an ellipsoid of radii 80 / 110 / 95
+    with a nose and brow ridge, ``n_lat`` rings of ``n_lon`` vertices and
+    two poles (2·n_lat·n_lon faces, 50,400 by default, consistently
+    wound), turned by 3° about y per ``frame`` → (verts (V, 3) f32, faces
+    (F, 3) int32)."""
+    lat = np.pi * (np.arange(1, n_lat + 1) / (n_lat + 1))
+    lon = 2 * np.pi * np.arange(n_lon) / n_lon
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    r = head_radius(th, ph)
     x = 80 * r * np.sin(th) * np.sin(ph)
     y = -110 * np.cos(th) * np.ones_like(r)
     z = 95 * r * np.sin(th) * np.cos(ph)
     pts = np.concatenate([[[0, -110, 0]], np.stack([x, y, z], -1)
                           .reshape(-1, 3), [[0, 110, 0]]])
-    a = np.deg2rad(3.0 * frame)
-    rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
-                    [-np.sin(a), 0, np.cos(a)]])
-    verts = (pts @ rot.T + np.asarray(centre)).astype(np.float32)
-    ring = lambda i: 1 + i * HEAD_LON  # noqa: E731
-    j = np.arange(HEAD_LON)
-    jn = (j + 1) % HEAD_LON
+    verts = posed(pts, frame, centre)
+    ring = lambda i: 1 + i * n_lon  # noqa: E731
+    j = np.arange(n_lon)
+    jn = (j + 1) % n_lon
     faces = [np.stack([np.zeros_like(j), ring(0) + jn, ring(0) + j], -1)]
-    for i in range(HEAD_LAT - 1):
+    for i in range(n_lat - 1):
         a0, a1 = ring(i) + j, ring(i) + jn
         b0, b1 = ring(i + 1) + j, ring(i + 1) + jn
         faces += [np.stack([a0, a1, b0], -1), np.stack([a1, b1, b0], -1)]
     last = len(pts) - 1
-    faces.append(np.stack([np.full_like(j, last), ring(HEAD_LAT - 1) + j,
-                           ring(HEAD_LAT - 1) + jn], -1))
+    faces.append(np.stack([np.full_like(j, last), ring(n_lat - 1) + j,
+                           ring(n_lat - 1) + jn], -1))
     return verts, np.concatenate(faces).astype(np.int32)
+
+
+def cube_head_mesh(n_xz, n_y, frame=0, centre=(0.0, 0.0, 1000.0)):
+    """``head_mesh``'s head without poles: the six faces of a cube, gridded
+    in ``n_xz`` cells along x and z and ``n_y`` along y (equal angles),
+    pushed onto the head's surface; every vertex is shared by at most six
+    faces, so no tile holds a fan of slivers (4·(2·n_xz·n_y + n_xz²)
+    faces, consistently wound; the cube's edges are duplicated at equal
+    positions) → (verts (V, 3) f32, faces (F, 3) int32)."""
+    def grid(n):
+        g = np.tan(np.pi / 4 * np.linspace(-1.0, 1.0, n + 1))
+        g[0], g[-1] = -1.0, 1.0
+        return g
+    grids = (grid(n_xz), grid(n_y), grid(n_xz))
+    pts, faces = [], []
+    for axis, (a, b) in enumerate(((1, 2), (2, 0), (0, 1))):
+        for sign in (1.0, -1.0):
+            if sign < 0:  # a × b = the face's outward normal
+                a, b = b, a
+            u, v = np.meshgrid(grids[a], grids[b], indexing="ij")
+            p = np.zeros(u.shape + (3,))
+            p[..., axis], p[..., a], p[..., b] = sign, u, v
+            idx = sum(len(q) for q in pts) + np.arange(u.size) \
+                .reshape(u.shape)
+            q00, q10 = idx[:-1, :-1], idx[1:, :-1]
+            q01, q11 = idx[:-1, 1:], idx[1:, 1:]
+            faces += [np.stack([q00, q10, q01], -1).reshape(-1, 3),
+                      np.stack([q10, q11, q01], -1).reshape(-1, 3)]
+            pts.append(p.reshape(-1, 3))
+    d = np.concatenate(pts)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r = head_radius(np.arccos(-d[:, 1]),
+                    np.arctan2(d[:, 0], d[:, 2]) % (2 * np.pi))
+    xyz = np.stack([80 * r * d[:, 0], 110 * d[:, 1], 95 * r * d[:, 2]], -1)
+    return posed(xyz, frame, centre), np.concatenate(faces).astype(np.int32)
 
 
 def write_obj(path, verts, faces):
@@ -4236,7 +4290,9 @@ def rasterize_edge_cases(device, seed=0):
     ``project``); edges along rows and columns of pixel centres; slivers;
     a face larger than the image, faces off screen and partly off; F = 0;
     H, W and F no multiples of the tile (16) or the chunk (256); 1,000
-    faces crowding one tile."""
+    faces crowding one tile; faces wider than the bins' span (the large
+    list) beside small ones, vertices at ±1e10 and a face wholly off the
+    map."""
     from diner_tpu_torch.ops.rasterize_cuda import project
     rng = np.random.RandomState(seed)
 
@@ -4273,6 +4329,18 @@ def rasterize_edge_cases(device, seed=0):
     slivers = np.stack([sl_a, sl_b, sl_c], 1).reshape(-1, 2)
     crowd = random_tris(1000, 16, 16, 3.0)
     crowd[0][:] = np.clip(crowd[0], 16.5, 31.5)  # all in tile (1, 1)
+
+    def spanning_and_far():
+        # faces ~100 px across on a 90×150 map (wider than 4 tiles: the
+        # large list) over small ones; vertices at ±1e10; the last face
+        # wholly at 1e10 (valid, off the map)
+        uv, z, idx = random_tris(60, 90, 150, 40.0, off=0.2)
+        tri = uv.reshape(60, 3, 2)[10:]  # faces 10-59 shrunk to a tenth
+        tri[:] = tri.mean(1, keepdims=True) * 0.9 + tri * 0.1
+        uv[0:90:9, 0] = 1e10
+        uv[4:90:15, 1] = -1e10
+        uv[-3:] = [[1e10, 5e9], [2e10, 5e9], [1e10, 9e9]]
+        return uv, z, idx
     return {
         "orientations": case(
             [[3.2, 4.1], [30.7, 6.3], [12.9, 25.8], [28.1, 2.2], [5.5, 27.9],
@@ -4302,6 +4370,7 @@ def rasterize_edge_cases(device, seed=0):
         "odd_sizes_f777": case(*random_tris(777, 33, 47, 4.0, off=0.1),
                                33, 47),
         "crowded_tile_f1000": case(*crowd, 40, 40),
+        "spanning_and_far_f60": case(*spanning_and_far(), 90, 150),
     }
 
 
@@ -4311,30 +4380,64 @@ def raster_pairs_in_boxes(uv, z, faces, H, W, znear=1e-4):
     pixel."""
     from diner_tpu_torch.ops.rasterize_cuda import face_terms
     t = face_terms(uv, z, faces, znear)
-    xlo, xhi, ylo, yhi = (b.double() for b in t["box"])
     counts = []
-    for lo, hi, n in ((xlo, xhi, W), (ylo, yhi, H)):
-        a = torch.ceil(lo - 0.5).clamp(min=0)
-        b = torch.floor(hi - 0.5).clamp(max=n - 1)
+    for lo, hi, n in ((t["xlo"], t["xhi"], W), (t["ylo"], t["yhi"], H)):
+        a = torch.ceil(lo.double() - 0.5).clamp(min=0)
+        b = torch.floor(hi.double() - 0.5).clamp(max=n - 1)
         counts.append((b - a + 1).clamp(min=0))
     return int((counts[0] * counts[1])[t["valid"]].sum())
 
 
-def raster_pairs_after_cull(uv, z, faces, H, W, znear=1e-4):
-    """The pixel-face tests kernel R makes after its tile cull: for each
-    valid face, the 16×16 tiles its box (grown by one pixel) meets, times
-    the tile's pixels."""
-    from diner_tpu_torch.ops.rasterize_cuda import face_terms
-    t = face_terms(uv, z, faces, znear)
-    xlo, xhi, ylo, yhi = (b.double() for b in t["box"])
-    T = RASTER_TILE
-    tiles = []
-    for lo, hi, n in ((xlo, xhi, W), (ylo, yhi, H)):
-        a = torch.ceil((lo - (T - 0.5)) / T).clamp(min=0)
-        b = torch.floor((hi - 0.5) / T).clamp(max=(n - 1) // T)
-        tiles.append((b - a + 1).clamp(min=0))
-    n = (tiles[0] * tiles[1])[t["valid"]].sum()
-    return int(n) * T * T
+def raster_bin_plan(uv, z, faces, H, W, znear=1e-4):
+    """Kernel R's bins as its kernels make them, with tensor ops in f32
+    (``csrc/rasterize_depth.cu:tile_range``): each valid face's tiles are
+    those whose pixel centres ceil / floor of its grown box − 0.5 can
+    reach, clamped to the map; a face spanning more than ``SPAN`` tiles on
+    an axis goes to the large list, which every tile tests against its own
+    extreme pixel centres. → {"x0", "x1", "y0", "y1": (F,) each face's
+    tile range, "hit": (F,) the range is on the map, "large": (F,) the face
+    is on the large list, "binned": (F,) it is in its tiles' lists,
+    "counts": (gy, gx) ids a tile's list holds (on the host), "entries":
+    their sum, "n_large": the large list's length, "pairs_after_cull": the
+    pixel tests the tile kernel makes, each tile's pixels in the map times
+    the faces it evaluates (its list and the large faces that meet it)}."""
+    from diner_tpu_torch.ops import rasterize_cuda as rc
+    t = rc.face_terms(uv, z, faces, znear)
+    T, S = rc.TILE, rc.SPAN
+    lay = rc.bin_layout(faces.shape[0], H, W)
+    gx, gy = lay["gx"], lay["gy"]
+    c0 = [torch.clamp(torch.ceil(t[k] - 0.5), min=0) for k in ("xlo", "ylo")]
+    c1 = [torch.clamp(torch.floor(t[k] - 0.5), max=n - 1)
+          for k, n in (("xhi", W), ("yhi", H))]
+    hit = t["valid"] & (c0[0] <= c1[0]) & (c0[1] <= c1[1])
+    lo, hi = ([torch.where(hit, c, torch.zeros_like(c)).long() // T
+               for c in cs] for cs in (c0, c1))
+    large = hit & ((hi[0] - lo[0] >= S) | (hi[1] - lo[1] >= S))
+    binned = hit & ~large
+    counts = torch.zeros(gy * gx, dtype=torch.int64, device=uv.device)
+    for dy in range(S):
+        for dx in range(S):
+            on = (binned & (lo[0] + dx <= hi[0]) & (lo[1] + dy <= hi[1]))
+            counts += torch.bincount(((lo[1] + dy) * gx + lo[0] + dx)[on],
+                                     minlength=gy * gx)
+    tx = torch.arange(gx, device=uv.device) * T
+    ty = torch.arange(gy, device=uv.device) * T
+    # the tile kernel's extreme pixel centres and pixels in the map
+    x_lo, y_lo = tx.float() + 0.5, ty.float() + 0.5
+    x_hi = torch.clamp(tx + T, max=W).float() - 0.5
+    y_hi = torch.clamp(ty + T, max=H).float() - 0.5
+    pixels = ((torch.clamp(ty + T, max=H) - ty)[:, None]
+              * (torch.clamp(tx + T, max=W) - tx)[None]).reshape(-1)
+    met = torch.zeros(gy * gx, dtype=torch.int64, device=uv.device)
+    for f in large.nonzero().flatten().tolist():
+        met += ((t["xlo"][f] <= x_hi)[None] & (t["xhi"][f] >= x_lo)[None]
+                & (t["ylo"][f] <= y_hi)[:, None]
+                & (t["yhi"][f] >= y_lo)[:, None]).reshape(-1)
+    return dict(x0=lo[0], x1=hi[0], y0=lo[1], y1=hi[1], hit=hit,
+                large=large, binned=binned,
+                counts=counts.reshape(gy, gx).int().cpu(),
+                entries=int(counts.sum()), n_large=int(large.sum()),
+                pairs_after_cull=int(((counts + met) * pixels).sum()))
 
 
 def raster_bound(pairs, V, F, H, W):
@@ -4348,16 +4451,70 @@ def raster_bound(pairs, V, F, H, W):
             else (bytes_ms, "bytes"))
 
 
+def raster_timed_case(name, uv, z, faces, H, W):
+    """One timed case of kernel R on the card: the kernel against its plain
+    version bit for bit, a second kernel call equal to the first (the
+    bins' order changes from run to run, the map must not), the kernel's
+    bins equal to ``raster_bin_plan``'s; ``ms`` (a graph of 20 calls),
+    ``call_ms``, ``plain_ms`` (its one comparison call between CUDA
+    events), the bound of the pairs a z-buffer needs (pixel centres in
+    each face's grown box) beside the pairs the bins leave, the ids they
+    hold, the large faces and the dense bound of H·W·F pairs.
+    → (row, the plain map)."""
+    from diner_tpu_torch.ops import rasterize_cuda as rc
+
+    def kernel():
+        return rc.rasterize_depth_kernel(uv, z, faces, H, W)
+
+    got, bins = rc.rasterize_depth_kernel_bins(uv, z, faces, H, W)
+    again = kernel()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ref = rc.rasterize_depth_plain(uv, z, faces, H, W, pixel_block=16384,
+                                   face_chunk=8192)
+    end.record()
+    torch.cuda.synchronize()
+    plan = raster_bin_plan(uv, z, faces, H, W)
+    pairs = raster_pairs_in_boxes(uv, z, faces, H, W)
+    V, F = uv.shape[0], faces.shape[0]
+    bound, by = raster_bound(pairs, V, F, H, W)
+    dense = H * W * F
+    row = dict(case=name, H=H, W=W, V=V, F=F, exact=torch.equal(got, ref),
+               repeat_exact=torch.equal(got, again),
+               max_abs_err=float((got - ref).abs().max()),
+               covered=int((got > 0).sum()), ms=device_time_ms(kernel, n=20),
+               call_ms=cuda_time_ms(kernel, 10, 2),
+               plain_ms=start.elapsed_time(end),
+               plain_timing="its one comparison call between CUDA events "
+               "(tiles of 16,384 pixels × 8,192 faces, faces culled to each "
+               "tile's rows)",
+               bin_entries=bins["entries"], large_faces=bins["large"],
+               occupied_tiles=int((bins["counts"] > 0).sum()),
+               tiles=bins["counts"].numel(),
+               bins_match_plan=torch.equal(bins["counts"], plan["counts"])
+               and bins["large"] == plan["n_large"],
+               pairs_in_boxes=pairs,
+               pairs_after_cull=plan["pairs_after_cull"], dense_pairs=dense,
+               dense_bound_ms=1e3 * dense * RASTER_OPS_PER_PAIR
+               / F32_FLOPS_PER_S, bound_ms=bound, bound_by=by,
+               library_ms=None)
+    emit("kernel_rasterize", **row)
+    check(row["exact"] and row["repeat_exact"] and row["bins_match_plan"]
+          and row["covered"] > 0.02 * H * W,
+          f"kernel R vs plain, {name}: {row}")
+    return row, ref
+
+
 def phase_kernel_rasterize(mf_root):
     """Kernel R against its plain version on the card, bit for bit: every
-    case of ``rasterize_edge_cases`` and the main case, the first tracked
-    mesh of the multiface subject (50,400 faces, read from its OBJ) at the
-    frame's 2048×1334 from camera 0, which ``preprocess_multiface`` renders
-    too. The main case is timed: ``ms`` (a graph of 20 calls), ``call_ms``,
-    ``plain_ms`` (its one comparison call between CUDA events), the bound
-    of the pairs a z-buffer needs (pixel centres in each face's grown box),
-    beside the pairs the kernel's tile cull leaves and the dense bound of
-    H·W·F pairs.
+    case of ``rasterize_edge_cases`` (with the kernel's bins held to
+    ``raster_bin_plan``), then two timed cases at the frame's 2048×1334
+    from camera 0 of the multiface subject, which ``preprocess_multiface``
+    renders too: the main case, its first tracked mesh (50,400 faces,
+    read from its OBJ), and the dense-mesh case, the same head at
+    ``DENSE_LAT`` × ``DENSE_LON`` rings (1,008,000 faces), then the head
+    without poles at both sizes (``cube_head_mesh`` at ``CUBE_HEAD`` and
+    ``CUBE_DENSE``) (``raster_timed_case``).
     Returns the rows and the plain map of the main case (on the host)."""
     from diner_tpu_torch.data.multiface import load_krt
     from diner_tpu_torch.ops import rasterize_cuda as rc
@@ -4366,13 +4523,18 @@ def phase_kernel_rasterize(mf_root):
     rows, maps = [], {}
     cases = rasterize_edge_cases("cuda")
     for name, (uv, z, faces, H, W) in cases.items():
-        got = rc.rasterize_depth_kernel(uv, z, faces, H, W)
+        got, bins = rc.rasterize_depth_kernel_bins(uv, z, faces, H, W)
         ref = rc.rasterize_depth_plain(uv, z, faces, H, W)
+        plan = raster_bin_plan(uv, z, faces, H, W)
         row = dict(case=name, H=H, W=W, F=faces.shape[0],
                    exact=torch.equal(got, ref), covered=int((got > 0).sum()),
-                   max_abs_err=float((got - ref).abs().max()))
+                   max_abs_err=float((got - ref).abs().max()),
+                   bin_entries=bins["entries"], large_faces=bins["large"],
+                   bins_match_plan=torch.equal(bins["counts"], plan["counts"])
+                   and bins["large"] == plan["n_large"])
         emit("kernel_rasterize", **row)
-        check(row["exact"], f"kernel R vs plain, {name}: {row}")
+        check(row["exact"] and row["bins_match_plan"],
+              f"kernel R vs plain, {name}: {row}")
         rows.append(row)
         maps[name] = got
     # the cases' own expectations: the face above the threshold covers its
@@ -4384,55 +4546,31 @@ def phase_kernel_rasterize(mf_root):
     check(float(thr[0, 0]) == 2.0 and int((thr > 0).sum()) == 1
           and int((maps["no_faces"] > 0).sum()) == 0
           and torch.equal(maps["collapsed_face"], alone)
-          and int((alone > 0).sum()) > 0,
-          f"kernel R edge expectations: {rows}")
+          and int((alone > 0).sum()) > 0
+          and rows[list(cases).index("spanning_and_far_f60")]["large_faces"]
+          > 0, f"kernel R edge expectations: {rows}")
 
     subj = mf_root / MF_SUBJECT
-    verts, faces = load_obj_vertices_faces(
-        subj / "tracked_mesh" / MF_SEQ / f"{MF_FRAMES[0]}.obj")
     cam = sorted(load_krt(subj / "KRT").items())[0][1]
     H, W = RASTER_HW
-    uv, z = rc.project(torch.from_numpy(verts).cuda(),
-                       torch.from_numpy(cam["intrin"]).cuda(),
-                       torch.from_numpy(cam["extrin"]).cuda())
-    faces_t = torch.from_numpy(faces).cuda()
-
-    def kernel():
-        return rc.rasterize_depth_kernel(uv, z, faces_t, H, W)
-
-    def plain():
-        return rc.rasterize_depth_plain(uv, z, faces_t, H, W,
-                                        pixel_block=16384, face_chunk=8192)
-
-    got = kernel()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    ref = plain()
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    exact = torch.equal(got, ref)
-    pairs = raster_pairs_in_boxes(uv, z, faces_t, H, W)
-    bound, by = raster_bound(pairs, len(verts), len(faces), H, W)
-    dense = H * W * len(faces)
-    row = dict(case="multiface_head", H=H, W=W, V=len(verts), F=len(faces),
-               exact=exact, max_abs_err=float((got - ref).abs().max()),
-               covered=int((got > 0).sum()), ms=device_time_ms(kernel, n=20),
-               call_ms=cuda_time_ms(kernel, 10, 2), plain_ms=plain_ms,
-               plain_timing="its one comparison call between CUDA events "
-               "(tiles of 16,384 pixels × 8,192 faces)",
-               pairs_in_boxes=pairs, pairs_after_cull=raster_pairs_after_cull(
-                   uv, z, faces_t, H, W), dense_pairs=dense,
-               dense_bound_ms=1e3 * dense * RASTER_OPS_PER_PAIR
-               / F32_FLOPS_PER_S, bound_ms=bound, bound_by=by,
-               library_ms=None)
-    emit("kernel_rasterize", **row)
-    check(exact and row["covered"] > 0.02 * H * W,
-          f"kernel R vs plain at the multiface frame: {row}")
-    rows.append(row)
-    plain_map = ref.cpu().numpy()
-    del got, ref, uv, z
-    torch.cuda.empty_cache()
+    meshes = {"multiface_head": lambda: load_obj_vertices_faces(
+        subj / "tracked_mesh" / MF_SEQ / f"{MF_FRAMES[0]}.obj"),
+        "dense_head": lambda: head_mesh(0, n_lat=DENSE_LAT, n_lon=DENSE_LON),
+        "cube_head": lambda: cube_head_mesh(*CUBE_HEAD),
+        "cube_dense": lambda: cube_head_mesh(*CUBE_DENSE)}
+    plain_map = None
+    for name, make in meshes.items():
+        verts, faces = make()
+        uv, z = rc.project(torch.from_numpy(verts).cuda(),
+                           torch.from_numpy(cam["intrin"]).cuda(),
+                           torch.from_numpy(cam["extrin"]).cuda())
+        row, ref = raster_timed_case(name, uv, z, torch.from_numpy(faces)
+                                     .cuda(), H, W)
+        rows.append(row)
+        if plain_map is None:
+            plain_map = ref.cpu().numpy()
+        del uv, z, ref
+        torch.cuda.empty_cache()
     return rows, plain_map
 
 
@@ -4977,6 +5115,12 @@ def main():
     # by bytes, 320 of an image's 480 launches); every timed case beside it
     corner = next(r for r in gather_rows
                   if r["case"] == "latent_corner_c512_bf16")
+    raster_main, raster_dense = (next(r for r in raster_rows
+                                      if r["case"] == c)
+                                 for c in ("multiface_head", "dense_head"))
+    raster_timed_keys = ("plain_timing", "bin_entries", "large_faces",
+                         "occupied_tiles", "tiles", "pairs_in_boxes",
+                         "pairs_after_cull", "dense_pairs", "dense_bound_ms")
     timed = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
     tl_R, tl_K = train_loop_composite_shape()
 
@@ -5071,20 +5215,28 @@ def main():
                  "tiles_culled", "tested_pairs", "tested_pairs_ms",
                  "brute_force_ms")
                  + timed if k in r} for r in knn_rows]),
-        # the multiface frame (2048×1334, 50,400 faces); the edge cases'
+        # the multiface frame (2048×1334, 50,400 faces); the dense-mesh
+        # case, the pole-free head at both sizes and the edge cases'
         # exactness beside it
-        dict(entry("rasterize_depth", raster_rows, raster_rows[-1],
+        dict(entry("rasterize_depth", raster_rows, raster_main,
                    "diner_tpu/preprocessing/rasterize.py:24", 5),
+             main_case=raster_main["case"],
              library_ms_note="no PyTorch call computes a z-buffer",
-             plain_timing=raster_rows[-1]["plain_timing"],
-             pairs_in_boxes=raster_rows[-1]["pairs_in_boxes"],
-             pairs_after_cull=raster_rows[-1]["pairs_after_cull"],
-             dense_pairs=raster_rows[-1]["dense_pairs"],
-             dense_bound_ms=raster_rows[-1]["dense_bound_ms"],
+             launches_per_call=RASTER_LAUNCHES_PER_CALL,
              launches_per_multiface_map=paths["preprocess_multiface"][5]
              / (MF_CAMS * len(MF_FRAMES)),
+             **{k: raster_main[k] for k in raster_timed_keys},
+             dense_mesh_case={k: raster_dense[k] for k in (
+                 "case", "V", "F", "ms", "call_ms", "plain_ms", "bound_ms",
+                 "bound_by") + raster_timed_keys},
+             pole_free_cases=[{k: r[k] for k in (
+                 "case", "V", "F", "ms", "call_ms", "plain_ms", "bound_ms",
+                 "bound_by") + raster_timed_keys}
+                 for r in raster_rows if r["case"].startswith("cube_")],
              cases=[{k: r[k] for k in ("case", "H", "W", "F", "exact",
-                                       "covered")} for r in raster_rows]),
+                                       "covered", "bin_entries",
+                                       "large_faces")}
+                    for r in raster_rows]),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -3,7 +3,13 @@
 ``csrc/rasterize_depth.cu`` replaces the JAX package's
 ``diner_tpu/preprocessing/rasterize.py:rasterize_depth`` (jitted XLA, no
 Pallas kernel: pixel blocks × face chunks under ``lax.map`` /
-``lax.scan``); its bound and design are in the source. Both versions start
+``lax.scan``); its bound and design are in the source: faces are binned to
+``TILE``×``TILE`` pixel tiles (a count, a scan, a scatter of face ids),
+then persistent blocks take a tile's list in slices of ``SLICE`` ids and
+read only those and the few faces that span more than ``SPAN`` tiles on
+an axis. Its scratch is sized on the host from F and the map alone
+(:func:`bin_layout`), so a call reads nothing back and can be captured in
+a CUDA graph. Both versions start
 from the same projection (:func:`project`: the vertices in camera space,
 then ``uv = xy / z · (fx, fy) + (cx, cy)``, with plain tensor ops) and
 compute, at each pixel centre, the least perspective-correct depth
@@ -34,14 +40,25 @@ import torch
 from diner_tpu_torch.ops import cuda_build
 
 # kernel launches since the count was last set to 0 (read by chip_smoke.py):
-# a call launches the setup kernel (when F > 0) and the raster kernel
+# a call with F > 0 launches the bin, scan, scatter and tile kernels, one
+# with F = 0 the tile kernel alone (it writes zeros)
 launches = 0
+LAUNCHES_PER_CALL = 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P]
-MAX_TILE_ROWS = 65535 * 16  # gridDim.y tiles of 16 rows
+_ARGTYPES = [_P, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P, _I, _P]
+TILE = 16         # csrc/rasterize_depth.cu's kTile: pixels per tile side
+SPAN = 4          # its kSpan: tiles a binned face may span on each axis
+SLICE = 128       # its kSlice: list ids a work item takes
+MAX_SIDE = 1 << 24  # H and W (exact in f32, as the kernel's clamps need)
+INT_LIMIT = 2 ** 31 - 1  # the kernel's int32 ids, offsets and tile index
 DENOM_MIN = 1e-12
 INV_Z_MIN = 1e-9
+
+
+@functools.cache
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -50,6 +67,23 @@ def _launcher():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def bin_layout(F: int, H: int, W: int) -> dict:
+    """The kernel's int32 scratch, from F and the map alone: at most
+    ``items`` work items (int2: a tile's list cut into slices of ``SLICE``
+    ids, at ``0``), then at ``counts`` the ``tiles`` counters, the
+    large-face count, the work counter, ``tiles`` done counters and ready
+    flags (these cleared by a memset), ``tiles`` offsets, the item count,
+    a large list of F ids and the tiles' lists, ``capacity`` = SPAN²·F ids
+    (a binned face spans at most SPAN × SPAN tiles)."""
+    gx, gy = -(-W // TILE), -(-H // TILE)
+    tiles = gx * gy
+    capacity = SPAN * SPAN * F
+    items = tiles + -(-capacity // SLICE)
+    return dict(gx=gx, gy=gy, tiles=tiles, capacity=capacity, items=items,
+                counts=2 * items,
+                ints=2 * items + 4 * tiles + 3 + F + capacity)
 
 
 def project(vertices, K, Rt):
@@ -94,18 +128,45 @@ def face_terms(uv, z, faces, znear: float):
     e2y = tv[:, 2] - tv[:, 0]
     denom = e1x * e2y - e1y * e2x
     valid = (tz > znear).all(-1) & (denom.abs() >= DENOM_MIN)
-    box = (torch.minimum(torch.minimum(tu[:, 0], tu[:, 1]), tu[:, 2]) - 1.0,
-           torch.maximum(torch.maximum(tu[:, 0], tu[:, 1]), tu[:, 2]) + 1.0,
-           torch.minimum(torch.minimum(tv[:, 0], tv[:, 1]), tv[:, 2]) - 1.0,
-           torch.maximum(torch.maximum(tv[:, 0], tv[:, 1]), tv[:, 2]) + 1.0)
-    return dict(u0=tu[:, 0], v0=tv[:, 0], e1x=e1x, e1y=e1y, e2x=e2x,
-                e2y=e2y, denom=denom, z=tz, valid=valid, box=box)
+    return dict(
+        u0=tu[:, 0], v0=tv[:, 0], e1x=e1x, e1y=e1y, e2x=e2x, e2y=e2y,
+        denom=denom, z=tz, valid=valid,
+        xlo=torch.minimum(torch.minimum(tu[:, 0], tu[:, 1]), tu[:, 2]) - 1.0,
+        xhi=torch.maximum(torch.maximum(tu[:, 0], tu[:, 1]), tu[:, 2]) + 1.0,
+        ylo=torch.minimum(torch.minimum(tv[:, 0], tv[:, 1]), tv[:, 2]) - 1.0,
+        yhi=torch.maximum(torch.maximum(tv[:, 0], tv[:, 1]), tv[:, 2]) + 1.0)
+
+
+def cover(px, py, t):
+    """The per-pair test: pixel centres ``px``, ``py`` (P, 1) against the
+    faces of :func:`face_terms` ``t`` (n,) → (covered (P, n), inv_z (P,
+    n): ``max((b0/z0 + b1/z1) + b2/z2, 1e-9)``, whose reciprocal is the
+    depth where covered), every operation in the kernel's order."""
+    dx = px - t["u0"][None]
+    dy = py - t["v0"][None]
+    e1x, e1y = t["e1x"][None], t["e1y"][None]
+    e2x, e2y = t["e2x"][None], t["e2y"][None]
+    denom = t["denom"][None]
+    b1 = (dx * e2y - dy * e2x) / denom
+    b2 = (e1x * dy - e1y * dx) / denom
+    b0 = (1.0 - b1) - b2
+    inside = (t["valid"][None] & (px >= t["xlo"][None])
+              & (px <= t["xhi"][None]) & (py >= t["ylo"][None])
+              & (py <= t["yhi"][None])
+              & (b0 >= 0) & (b1 >= 0) & (b2 >= 0))
+    tz = t["z"]
+    inv_z = (b0 / tz[None, :, 0] + b1 / tz[None, :, 1]) + b2 / tz[None, :, 2]
+    return inside, torch.where(inv_z < INV_Z_MIN,
+                               torch.full_like(inv_z, INV_Z_MIN), inv_z)
 
 
 def rasterize_depth_plain(uv, z, faces, H: int, W: int, znear: float = 1e-4,
                           pixel_block: int = 4096, face_chunk: int = 4096):
     """The plain version: the (H, W) f32 z-buffer of the projected mesh,
-    with elementwise tensor ops on (pixel_block, face_chunk) tiles."""
+    with elementwise tensor ops on (pixel_block, face_chunk) tiles. A pixel
+    block (a run of whole or part rows) takes only the valid faces whose
+    grown box meets its rows, by the same f32 compares as the per-pixel
+    box test, so the map is that of every face."""
     _check(uv, z, faces, H, W)
     uv = uv.float()
     z = z.float()
@@ -122,39 +183,25 @@ def rasterize_depth_plain(uv, z, faces, H: int, W: int, znear: float = 1e-4,
     xs, ys = xs.reshape(-1), ys.reshape(-1)
     pb, fc = max(int(pixel_block), 1), max(int(face_chunk), 1)
     for p0 in range(0, H * W, pb):
-        px, py = xs[p0:p0 + pb, None], ys[p0:p0 + pb, None]
-        best = out[p0:p0 + pb]
-        for f0 in range(0, F, fc):
-            s = slice(f0, f0 + fc)
-            dx = px - t["u0"][None, s]
-            dy = py - t["v0"][None, s]
-            e1x, e1y = t["e1x"][None, s], t["e1y"][None, s]
-            e2x, e2y = t["e2x"][None, s], t["e2y"][None, s]
-            denom = t["denom"][None, s]
-            b1 = (dx * e2y - dy * e2x) / denom
-            b2 = (e1x * dy - e1y * dx) / denom
-            b0 = (1.0 - b1) - b2
-            xlo, xhi, ylo, yhi = (b[None, s] for b in t["box"])
-            inside = (t["valid"][None, s] & (px >= xlo) & (px <= xhi)
-                      & (py >= ylo) & (py <= yhi)
-                      & (b0 >= 0) & (b1 >= 0) & (b2 >= 0))
-            tz = t["z"][s]
-            inv_z = (b0 / tz[None, :, 0] + b1 / tz[None, :, 1]) \
-                + b2 / tz[None, :, 2]
-            inv_z = torch.where(inv_z < INV_Z_MIN,
-                                torch.full_like(inv_z, INV_Z_MIN), inv_z)
+        p1 = min(p0 + pb, H * W)
+        px, py = xs[p0:p1, None], ys[p0:p1, None]
+        best = out[p0:p1]
+        # the faces whose box meets the block's first to last row
+        keep = t["valid"] & (t["ylo"] <= ys[p1 - 1]) & (t["yhi"] >= ys[p0])
+        tb = {k: v[keep] for k, v in t.items()}
+        for f0 in range(0, tb["u0"].shape[0], fc):
+            inside, inv_z = cover(px, py, {k: v[f0:f0 + fc]
+                                           for k, v in tb.items()})
             depth = torch.where(inside, 1.0 / inv_z,
                                 torch.full_like(inv_z, float("inf")))
             best = torch.minimum(best, depth.amin(dim=1))
-        out[p0:p0 + pb] = best
+        out[p0:p1] = best
     out = torch.where(torch.isinf(out), torch.zeros_like(out), out)
     return out.reshape(H, W)
 
 
-def rasterize_depth_kernel(uv, z, faces, H: int, W: int,
-                           znear: float = 1e-4):
-    """Launch the kernel: uv (V, 2), z (V,) f32 and faces (F, 3) integer
-    CUDA tensors (indices in [0, V), not checked here) → (H, W) f32."""
+def _launch(uv, z, faces, H: int, W: int, znear: float):
+    """Check, allocate and launch → (out, the int32 bin scratch)."""
     global launches
     _check(uv, z, faces, H, W)
     if uv.device.type != "cuda":
@@ -163,27 +210,55 @@ def rasterize_depth_kernel(uv, z, faces, H: int, W: int,
     if uv.dtype != torch.float32 or z.dtype != torch.float32:
         raise ValueError(f"rasterize kernel: {uv.dtype} uv and {z.dtype} z, "
                          "expected float32")
-    if H > MAX_TILE_ROWS:
-        raise ValueError(f"rasterize kernel: {H} rows, at most "
-                         f"{MAX_TILE_ROWS}")
+    if H > MAX_SIDE or W > MAX_SIDE:
+        raise ValueError(f"rasterize kernel: a {H}×{W} map, at most "
+                         f"{MAX_SIDE} a side")
     F = faces.shape[0]
-    if F >= 2 ** 31:
-        raise ValueError(f"rasterize kernel: {F} faces, fewer than 2^31")
+    layout = bin_layout(F, H, W)
+    if layout["tiles"] > INT_LIMIT or layout["ints"] > INT_LIMIT:
+        raise ValueError(f"rasterize kernel: {F} faces on a {H}×{W} map "
+                         f"need {layout['ints']} int32 bin entries, more "
+                         f"than {INT_LIMIT}")
     uv = uv.contiguous()
     z = z.contiguous()
     faces = faces.to(torch.int32).contiguous()
-    rec = torch.empty((max(F, 1), 12), dtype=torch.float32, device=uv.device)
-    box = torch.empty((max(F, 1), 4), dtype=torch.float32, device=uv.device)
-    out = torch.empty((H, W), dtype=torch.float32, device=uv.device)
-    err = cuda_build.launch(_launcher(), uv.device, uv.data_ptr(),
-                            z.data_ptr(), faces.data_ptr(), F, float(znear),
-                            H, W, rec.data_ptr(), box.data_ptr(),
-                            out.data_ptr())
+    dev = uv.device
+    rec = torch.empty((max(F, 1), 12), dtype=torch.float32, device=dev)
+    box = torch.empty((max(F, 1), 4), dtype=torch.float32, device=dev)
+    bins = torch.empty(max(layout["ints"], 1), dtype=torch.int32, device=dev)
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    err = cuda_build.launch(_launcher(), dev, uv.data_ptr(), z.data_ptr(),
+                            faces.data_ptr(), F, float(znear), H, W,
+                            rec.data_ptr(), box.data_ptr(), bins.data_ptr(),
+                            out.data_ptr(), _multiprocessors(dev.index))
     if err != 0:
         raise RuntimeError(f"rasterize kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 2 if F > 0 else 1
-    return out
+    launches += LAUNCHES_PER_CALL if F > 0 else 1
+    return out, bins
+
+
+def rasterize_depth_kernel(uv, z, faces, H: int, W: int,
+                           znear: float = 1e-4):
+    """Launch the kernel: uv (V, 2), z (V,) f32 and faces (F, 3) integer
+    CUDA tensors (indices in [0, V), not checked here) → (H, W) f32."""
+    return _launch(uv, z, faces, H, W, znear)[0]
+
+
+def rasterize_depth_kernel_bins(uv, z, faces, H: int, W: int,
+                                znear: float = 1e-4):
+    """The kernel's map and what its bins held, read back after the call:
+    (out, {"counts": (gy, gx) faces listed a tile, "entries": their sum,
+    "large": faces on the large list})."""
+    out, bins = _launch(uv, z, faces, H, W, znear)
+    layout = bin_layout(faces.shape[0], H, W)
+    if faces.shape[0] == 0:
+        counts = torch.zeros((layout["gy"], layout["gx"]), dtype=torch.int32)
+        return out, dict(counts=counts, entries=0, large=0)
+    c, n = layout["counts"], layout["tiles"]
+    counts = bins[c:c + n].reshape(layout["gy"], layout["gx"]).cpu()
+    return out, dict(counts=counts, entries=int(counts.long().sum()),
+                     large=int(bins[c + n]))
 
 
 def rasterize(uv, z, faces, H: int, W: int, znear: float = 1e-4,

@@ -1,10 +1,11 @@
 """The plans of the port's redesigned kernels, emulated on the CPU.
 
-The top-1 kNN (``csrc/knn1.cu``) skips vertex tiles by a bound, and the
+The top-1 kNN (``csrc/knn1.cu``) skips vertex tiles by a bound, the
 DCN sampler's backward (``csrc/dcn_sample_bwd.cu``) splits a tap's corners
-between the tiles that own them and a spill pass. Neither kernel runs
-here, so each plan is emulated in plain PyTorch, step by step as the kernel
-takes it, and held to the plain version:
+between the tiles that own them and a spill pass, and the mesh z-buffer
+(``csrc/rasterize_depth.cu``, kernel R) bins faces to pixel tiles. None of
+these kernels runs here, so each plan is emulated in plain PyTorch or
+numpy, step by step as the kernel takes it, and held to the plain version:
 
 - the kNN: the same Morton order, tiles, boxes, representatives, margin,
   warp vote (32 consecutive points) and tie rule (d², original index) give
@@ -15,7 +16,17 @@ takes it, and held to the plain version:
   region that fall in it, plus the spilled corners, gives the four outputs
   of ``bilinear_sample_pix_bwd_plain`` within 1e-5 of each output's max, at
   odd H and W, in f32 and bf16, with offsets that spill and with every
-  point spilled.
+  point spilled;
+- kernel R: each face's tile range, from its grown box in f32 as the
+  kernel computes it, holds every pixel centre the per-pixel box test
+  admits (so every pair the plain version covers) or the face is on the
+  large list, on ``chip_smoke.rasterize_edge_cases`` and on seeded meshes
+  with boxes at ±1e4 and ±1e10; the lists never outgrow the capacity the
+  wrapper allocates; a tile kernel reading only its list and the large
+  faces, each warp only those that meet its rows, gives the plain map bit
+  for bit; the tile kernel's early exit
+  before the divisions drops no covered pair; and the plain version's
+  row-band cull changes no map.
 
 The kernels themselves are held to the same cases on the card by
 ``tests/test_torch_kernels.py -m cuda`` and ``chip_smoke.py``.
@@ -27,12 +38,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import knn_edge_cases, knn_ray_points
+from chip_smoke import (cube_head_mesh, head_mesh, knn_edge_cases,
+                        knn_ray_points, raster_bin_plan,
+                        rasterize_edge_cases)
 from diner_tpu_torch.ops import cuda_build, dcn_cuda, knn_cuda
+from diner_tpu_torch.ops import rasterize_cuda as rc
 
 KNN_SRC = (cuda_build.PKG_DIR / cuda_build.SOURCES["knn1"]).read_text()
 DCN_SRC = (cuda_build.PKG_DIR
            / cuda_build.SOURCES["dcn_sample_bwd"]).read_text()
+RASTER_SRC = (cuda_build.PKG_DIR
+              / cuda_build.SOURCES["rasterize_depth"]).read_text()
 
 
 def _constant(src, name):
@@ -288,3 +304,253 @@ def test_dcn_tile_partition_equals_the_plain_backward(dtype, C, spread):
     for a, b in zip(got, ref):
         err = (a - b).abs().max() / b.abs().max()
         assert err <= 1e-5, float(err)
+
+
+# ---------------------------------------------------------------- kernel R
+
+def test_raster_constants_match_the_wrapper():
+    assert _constant(RASTER_SRC, "kTile") == rc.TILE
+    assert _constant(RASTER_SRC, "kSlice") == rc.SLICE
+    assert _constant(RASTER_SRC, "kSpan") == rc.SPAN
+    assert rc.SLICE % _constant(RASTER_SRC, "kChunk") == 0
+    assert rc.LAUNCHES_PER_CALL == 4
+    lay = rc.bin_layout(50400, 2048, 1334)
+    assert (lay["gx"], lay["gy"], lay["tiles"]) == (84, 128, 10752)
+    assert lay["capacity"] == rc.SPAN ** 2 * 50400
+    assert lay["items"] == 10752 + -(-lay["capacity"] // rc.SLICE)
+    assert lay["counts"] == 2 * lay["items"]
+    assert lay["ints"] == (2 * lay["items"] + 4 * 10752 + 3 + 50400
+                           + lay["capacity"])
+
+
+def raster_plan(uv, z, faces, H, W):
+    """``chip_smoke.raster_bin_plan``'s per-face arrays in numpy: the tile
+    ranges x0, x1, y0, y1, and the flags hit, large, binned."""
+    plan = raster_bin_plan(uv, z, faces, H, W)
+    return plan, {k: plan[k].numpy() for k in
+                  ("x0", "x1", "y0", "y1", "hit", "large", "binned")}
+
+
+def raster_far_mesh(scale, seed):
+    """Seeded triangles on a 45×70 map: a third with one vertex pushed to
+    ±``scale`` px (in x or y), a sixth with two, a sixth entirely at
+    ±``scale`` (off the map), the rest a few pixels wide."""
+    rng = np.random.RandomState(seed)
+    H, W, F = 45, 70, 150
+    c = rng.uniform([0, 0], [W, H], (F, 2))
+    uv = c[:, None] + rng.normal(size=(F, 3, 2)) * 6.0
+    kind = rng.randint(0, 6, F)
+    far = rng.choice([-1.0, 1.0], (F, 3, 2)) * scale \
+        * rng.uniform(0.5, 1.0, (F, 3, 2))
+    axis = rng.randint(0, 2, F)
+    for i in range(F):
+        n = {0: 1, 1: 1, 2: 2, 3: 3}.get(kind[i], 0)
+        if n == 3:
+            uv[i] = far[i]
+        elif n:
+            uv[i, :n, axis[i]] = far[i, :n, axis[i]]
+    z = rng.uniform(0.5, 3.0, (F, 3))
+    return (torch.from_numpy(uv.reshape(-1, 2).astype(np.float32)),
+            torch.from_numpy(z.ravel().astype(np.float32)),
+            torch.arange(3 * F, dtype=torch.int32).reshape(F, 3), H, W)
+
+
+def raster_plan_cases():
+    cases = dict(rasterize_edge_cases("cpu"))
+    for scale in (1e4, 1e10):
+        for seed in (0, 1):
+            cases[f"far_{scale:.0e}_seed{seed}"] = raster_far_mesh(scale,
+                                                                   seed)
+    return cases
+
+
+RASTER_PLAN_CASES = sorted(raster_plan_cases())
+
+
+def _pixel_centres(H, W):
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32) + 0.5,
+                            torch.arange(W, dtype=torch.float32) + 0.5,
+                            indexing="ij")
+    return xs.reshape(-1, 1), ys.reshape(-1, 1)
+
+
+@pytest.mark.parametrize("case", RASTER_PLAN_CASES)
+def test_raster_bins_hold_every_pair_the_box_test_admits(case):
+    uv, z, faces, H, W = raster_plan_cases()[case]
+    if faces.shape[0] == 0:
+        return
+    _, e = raster_plan(uv, z, faces, H, W)
+    t = rc.face_terms(uv, z, faces, 1e-4)
+    px, py = _pixel_centres(H, W)
+    covered, _ = rc.cover(px, py, t)
+    in_box = (t["valid"][None] & (px >= t["xlo"][None])
+              & (px <= t["xhi"][None]) & (py >= t["ylo"][None])
+              & (py <= t["yhi"][None])).numpy()
+    tx = (px[:, 0].long() // rc.TILE).numpy()[:, None]
+    ty = (py[:, 0].long() // rc.TILE).numpy()[:, None]
+    listed = e["binned"][None] & (tx >= e["x0"][None]) \
+        & (tx <= e["x1"][None]) & (ty >= e["y0"][None]) \
+        & (ty <= e["y1"][None])
+    held = listed | e["large"][None]
+    assert not (in_box & ~held).any()
+    assert not (covered.numpy() & ~held).any()
+    # a face listed in a tile has a pixel centre in the tile's span of
+    # rows and of columns that its range was computed from
+    assert (e["x0"] <= e["x1"]).all() and (e["y0"] <= e["y1"]).all()
+    if case.startswith("far_"):
+        assert e["large"].any() and e["binned"].any()
+        assert (~e["hit"] & t["valid"].numpy()).any()  # boxes off the map
+        assert covered.any()
+
+
+@pytest.mark.parametrize("case", RASTER_PLAN_CASES)
+def test_raster_bins_stay_within_the_allocated_capacity(case):
+    uv, z, faces, H, W = raster_plan_cases()[case]
+    F = faces.shape[0]
+    plan, e = raster_plan(uv, z, faces, H, W)
+    nx = np.where(e["binned"], e["x1"] - e["x0"] + 1, 0)
+    ny = np.where(e["binned"], e["y1"] - e["y0"] + 1, 0)
+    assert (nx <= rc.SPAN).all() and (ny <= rc.SPAN).all()
+    lay = rc.bin_layout(F, H, W)
+    assert int((nx * ny).sum()) <= lay["capacity"]
+    assert int(e["large"].sum()) <= F
+    assert lay["tiles"] == -(-H // rc.TILE) * -(-W // rc.TILE)
+    # chip_smoke.py holds the kernel's counters to the plan's
+    counts = np.zeros((lay["gy"], lay["gx"]), np.int64)
+    for f in np.flatnonzero(e["binned"]):
+        counts[e["y0"][f]:e["y1"][f] + 1, e["x0"][f]:e["x1"][f] + 1] += 1
+    assert np.array_equal(plan["counts"].numpy(), counts)
+    assert plan["entries"] == int((nx * ny).sum())
+    assert plan["n_large"] == int(e["large"].sum())
+
+
+@pytest.mark.parametrize("case", RASTER_PLAN_CASES)
+def test_raster_tiles_from_their_bins_give_the_plain_map(case):
+    """``rasterize_tiles`` emulated: each warp's band of ``32 / TILE`` rows
+    of a tile takes the largest clamped 1/z over the faces of the tile's
+    list and of the large faces that meet the tile whose box meets the
+    band's extreme pixel centres, and writes its reciprocal."""
+    uv, z, faces, H, W = raster_plan_cases()[case]
+    ref = rc.rasterize_depth_plain(uv, z, faces, H, W)
+    if faces.shape[0] == 0:
+        assert (ref == 0).all()
+        return
+    _, e = raster_plan(uv, z, faces, H, W)
+    t = rc.face_terms(uv, z, faces, 1e-4)
+    box = [t[k].numpy() for k in ("xlo", "xhi", "ylo", "yhi")]
+    T, rows = rc.TILE, 32 // rc.TILE
+    f32 = np.float32
+    got = torch.zeros((H, W))
+    large = np.flatnonzero(e["large"])
+
+    def meets(ids, xl, xh, yl, yh):
+        b = [box[k][ids] for k in range(4)]
+        return ids[(b[0] <= f32(xh - 0.5)) & (b[1] >= f32(xl + 0.5))
+                   & (b[2] <= f32(yh - 0.5)) & (b[3] >= f32(yl + 0.5))]
+
+    for y0 in range(0, H, T):
+        for x0 in range(0, W, T):
+            tx, ty = x0 // T, y0 // T
+            xh, yh = min(x0 + T, W), min(y0 + T, H)
+            own = np.flatnonzero(e["binned"] & (e["x0"] <= tx)
+                                 & (e["x1"] >= tx) & (e["y0"] <= ty)
+                                 & (e["y1"] >= ty))
+            staged = np.concatenate([own, meets(large, x0, xh, y0, yh)])
+            for wy in range(y0, yh, rows):
+                wh = min(wy + rows, H)
+                ids = torch.from_numpy(meets(staged, x0, xh, wy, wh))
+                if len(ids) == 0:
+                    continue
+                ys, xs = torch.meshgrid(
+                    torch.arange(wy, wh, dtype=torch.float32) + 0.5,
+                    torch.arange(x0, xh, dtype=torch.float32) + 0.5,
+                    indexing="ij")
+                inside, inv_z = rc.cover(xs.reshape(-1, 1),
+                                         ys.reshape(-1, 1),
+                                         {k: v[ids] for k, v in t.items()})
+                # the largest 1/z, then one reciprocal: 1/x rounds
+                # monotonically, so it is the least depth
+                best = torch.where(inside, inv_z, torch.zeros_like(inv_z))
+                best = best.amax(1).reshape(wh - wy, xh - x0)
+                got[wy:wh, x0:xh] = torch.where(best > 0, 1.0 / best,
+                                                torch.zeros_like(best))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("case", RASTER_PLAN_CASES)
+def test_raster_division_skip_rejects_no_covered_pair(case):
+    """The tile kernel's early exit (``inv_depth``): where n1 or n2 has
+    the other sign than denom and |n| ≥ fl(|denom|·2^-100), the pair is
+    never covered; it ends some of the pairs in a box that the
+    barycentrics reject."""
+    uv, z, faces, H, W = raster_plan_cases()[case]
+    if faces.shape[0] == 0:
+        return
+    t = rc.face_terms(uv, z, faces, 1e-4)
+    px, py = _pixel_centres(H, W)
+    covered, _ = rc.cover(px, py, t)
+    dx, dy = px - t["u0"][None], py - t["v0"][None]
+    n1 = dx * t["e2y"][None] - dy * t["e2x"][None]
+    n2 = t["e1x"][None] * dy - t["e1y"][None] * dx
+    denom = t["denom"][None]
+    tiny = denom.abs() * 2.0 ** -100
+    assert bool((tiny[0, t["valid"]] > 0).all())
+    skip = torch.where(denom > 0, (n1 <= -tiny) | (n2 <= -tiny),
+                       (n1 >= tiny) | (n2 >= tiny))
+    assert not bool((skip & covered).any())
+    in_box = (t["valid"][None] & (px >= t["xlo"][None])
+              & (px <= t["xhi"][None]) & (py >= t["ylo"][None])
+              & (py <= t["yhi"][None]))
+    outside = in_box & ~covered
+    if int(outside.sum()) > 100:
+        assert int((skip & outside).sum()) > 0
+
+
+@pytest.mark.parametrize("case", RASTER_PLAN_CASES + ["head", "cube_head"])
+def test_raster_plain_row_cull_changes_no_map(case):
+    """The plain version, whose pixel blocks take only the faces whose box
+    meets their rows, against every face at every pixel (``cover``), at
+    pixel blocks that end mid-row."""
+    if case in ("head", "cube_head"):
+        verts, faces = (head_mesh(0, n_lat=12, n_lon=20) if case == "head"
+                        else cube_head_mesh(4, 5))
+        K = torch.tensor([[400.0, 0, 40], [0, 400.0, 32], [0, 0, 1]])
+        uv, z = rc.project(torch.from_numpy(verts), K, torch.eye(4))
+        faces, H, W = torch.from_numpy(faces), 64, 80
+    else:
+        uv, z, faces, H, W = raster_plan_cases()[case]
+    dense = torch.zeros((H, W))
+    if faces.shape[0]:
+        px, py = _pixel_centres(H, W)
+        inside, inv_z = rc.cover(px, py, rc.face_terms(uv, z, faces, 1e-4))
+        depth = torch.where(inside, 1.0 / inv_z,
+                            torch.full_like(inv_z, float("inf")))
+        best = depth.amin(1).reshape(H, W)
+        dense = torch.where(torch.isinf(best), torch.zeros_like(best), best)
+    for pb in (97, 4096):
+        culled = rc.rasterize_depth_plain(uv, z, faces, H, W, pixel_block=pb,
+                                          face_chunk=64)
+        assert torch.equal(culled, dense)
+    if case in ("head", "cube_head"):
+        assert int((culled > 0).sum()) > 0.1 * H * W
+
+
+@pytest.mark.parametrize("n_xz, n_y", [(4, 5), (60, 75)])
+def test_cube_head_mesh_has_no_pole(n_xz, n_y):
+    """The pole-free stand-in: 4·(2·n_xz·n_y + n_xz²) faces (50,400 at the
+    main case's size), each vertex in at most six, every face wound
+    outwards, on the same head as ``head_mesh`` (its extent along each
+    axis within 2 %)."""
+    verts, faces = cube_head_mesh(n_xz, n_y)
+    assert faces.shape == (4 * (2 * n_xz * n_y + n_xz ** 2), 3)
+    assert faces.min() == 0 and faces.max() == len(verts) - 1
+    assert np.bincount(faces.ravel()).max() <= 6
+    v = verts.astype(np.float64)
+    c = v - v.mean(0)
+    n = np.cross(v[faces[:, 1]] - v[faces[:, 0]],
+                 v[faces[:, 2]] - v[faces[:, 0]])
+    assert ((n * c[faces].mean(1)).sum(1) > 0).all()
+    ref = head_mesh(0)[0]
+    span = verts.max(0) - verts.min(0)
+    ref_span = ref.max(0) - ref.min(0)
+    assert np.allclose(span, ref_span, rtol=0.02), (span, ref_span)
