@@ -64,25 +64,42 @@ set to 0 just before each and read just after:
   plane-sweep chunk per stage and one DCN tap (``gather_mvs``); ``python
   -m diner_tpu_torch.mvs.evaluate`` maps a test-layout scan of 5 views at
   864×1152 and fuses it (``normal``, then ``gipuma``), and the fixture's
-  ground-truth depths go through both fusion backends; DINER's
-  ``DTUDataset`` reads the written PNGs and the eval step renders from
-  them (``mvs_pipeline``); a small TransMVSNet on the card is held against
-  the CPU. Checks: loaded weights bit for bit, the files of both CLIs,
-  finite depth inside the cascade's reach, kernel C 456 (4 views) and 500
-  (5 views) times per map, fused shares of the ground truth, the source
-  depths DINER reads equal to the PNGs, A 80 and C 480 for its render.
+  ground-truth depths go through both fusion backends; a small
+  TransMVSNet on the card is held against the CPU. Checks: loaded weights
+  bit for bit, the files of both CLIs, finite depth inside the cascade's
+  reach, kernel C 456 (4 views) and 500 (5 views) times per map, fused
+  shares of the ground truth.
 - TransMVSNet training (``mvs_train``): ``python -m diner_tpu_torch.mvs
   --mode train`` in subprocesses at the CLI's defaults (512×640, 4 views,
-  48/32/8, 192 hypotheses, batch 1) on the fixture's scan: f32 and bf16
-  for 6 steps, autograd of the DCN gathers for 3, ``--remat`` full and
-  selective for 1, a second process resuming the f32 run for 2; then
+  48/32/8, 192 hypotheses, batch 1) on the fixture's scan: f32 for 6
+  steps, bf16 for 2, autograd of the DCN gathers for 3, ``--remat`` full
+  and selective for 1, a second process resuming the f32 run for 2; then
   ``write_prediction`` from the trained checkpoint and ``--mode profile``;
-  one warm step under the profiler (``mvs_train_profile``), and one small
-  step on the card against the CPU (``mvs_train_small_reference``).
+  one warm f32 step under the profiler (``mvs_train_profile``), and one
+  small step on the card against the CPU (``mvs_train_small_reference``).
   Checks: finite losses, no step skipped, kernel C 456 (912 full remat,
   588 selective) and the DCN backward 81 times per step, each process's
   peak within 0.95 of the card, the resume, the written maps, the trace;
   loss, gradients and BN statistics card vs CPU.
+- the one-command pipeline (``pipeline``, after the TransMVSNet phases):
+  ``python -m diner_tpu_torch.pipeline`` on the fixture (all 49 cameras)
+  at its full recipe's widths, the reference DTU recipe (TransMVSNet
+  512×640, 48/32/8 of 192, bf16, remat; DINER ResNet34, ResnetFC 5 × 512,
+  40 of 1000 samples, 15 Gaussians, 128 rays, a 64 px VGG patch, at
+  downsample 0.5; the prediction folder at 512×640 with 64 samples), only
+  its depth cut (3 MVS steps, 25 DINER steps, one validation hook of 2
+  views and a 2-frame sweep, 2 images scored): TransMVSNet training →
+  write_prediction into the tree → DINER training on those PNGs → the
+  prediction folder → its scores, each stage a subprocess whose launch
+  counts are read; after it ``python -m diner_tpu_torch.fusion`` fuses
+  the fixture's ground truth and ``mvs_test``'s gipuma folder. Checks:
+  every stage's exit code and launches (C and the DCN backward per MVS
+  step, C per map, A, B and C per DINER step, A and C per image), the
+  source depths DINER reads equal to the written PNGs and within one PNG
+  unit of the maps made, finite losses and logged rows, 2 pred / gt
+  pairs, finite scores in ``PIPELINE_RESULT.json``, the fusion CLI's
+  points those of the gipuma PLY and as many as the in-process fusion of
+  the ground truth.
 - NOVEL / NOVEL_PE (``novel_*``, before the TransMVSNet phases):
   ``configs/train_novel_facescape.yaml``'s model, renderer and optimizer
   (ResNet34 with the 64 px ring, ResnetFC 5 × 512, 40 of 1000 samples, 15
@@ -1114,8 +1131,8 @@ TRAIN_LOOP_DIR = OUT_DIR / "train_loop"
 TRAIN_LOOP_HW = (512, 640)  # the DTU image size of configs/train_dtu.yaml
 TRAIN_LOOP_BATCH = 4  # scenes per step, configs/train_dtu.yaml's own
 # validation's camera sweep, cut from the default 30 frames of 4 sweeps
-# (120 f32 renders) to one sweep of 3 frames
-TRAIN_LOOP_SWEEP = {"nframes": 3, "n_cam_sweeps": 1}
+# (120 f32 renders) to one sweep of 2 frames
+TRAIN_LOOP_SWEEP = {"nframes": 2, "n_cam_sweeps": 1}
 # the train loop's peak allocation, in the CLI and in the resumed fit, may
 # take this share of the card's memory: the rest is the CUDA context's and
 # the caching allocator's headroom
@@ -1175,7 +1192,7 @@ def phase_train_loop():
     scenes a step) with checkpoints at 3 and 4; then
     ``Trainer.fit(max_steps=6)`` in this process resumes from step 4,
     checkpoints and validates at step 6 (a prediction folder of 2 images,
-    scored, and one camera sweep of 3 frames: cut from 4 sweeps of 30, see
+    scored, and one camera sweep of 2 frames: cut from 4 sweeps of 30, see
     ``TRAIN_LOOP_SWEEP``). Checks: the step counts; the checkpoints (6 is
     the fit's final state bit for bit; a fresh TrainStep restored from the
     CLI's 4 holds it bit for bit, and its step 5 on the fit's batch and
@@ -3046,7 +3063,7 @@ MVS_WRITE_HW = (512, 640)  # MVSDTUDataset's crop: the maps DINER reads
 MVS_SOURCE_CAMS = (30, 10, 6, 35)
 MVS_TARGET_CAM = 24
 # fixture processes, each rendering every MVS_FIXTURE_JOBS-th camera
-MVS_FIXTURE_JOBS = 6
+MVS_FIXTURE_JOBS = 8
 MVS_TEST_HW = (864, 1152)  # scripts/mvs_test.py's --max_h / --max_w
 MVS_TEST_VIEWS = 5         # and its --num_view
 # the small card-vs-CPU forward; TransMVSNet needs H and W divisible by 32
@@ -3175,24 +3192,15 @@ def map_times(t0, records):
                 forward_s=[r["forward_s"] for r in records])
 
 
-def mvs_fixture_cams():
-    """The cameras the MVS phases read: the training set's quad grid (all
-    of it: the shuffled steps read 31 of its 34 in the first 16 samples)
-    and DINER's target."""
-    from diner_tpu_torch.mvs.datasets import quad_grid_ids
-    targets, srcs = quad_grid_ids(train=True)
-    return sorted(set(targets) | {c for s in srcs for c in s}
-                  | set(MVS_SOURCE_CAMS) | {MVS_TARGET_CAM})
-
-
 def phase_mvs_fixture():
     """``python -m diner_tpu_torch.data.dtu_fixture`` writes one scan (the
-    7 lights as links to one render) of the cameras the MVS phases read
-    (``mvs_fixture_cams``): 49 cam files, 1200×1600 renders and
+    7 lights as links to one render) of all 49 cameras (the pipeline's
+    DINER stage takes any of them as its target; TransMVSNet's training
+    reads the 34 of its quad grid): 49 cam files, 1200×1600 renders and
     ground-truth depths, in ``MVS_FIXTURE_JOBS`` processes that each render
     a share of the cameras."""
     shutil.rmtree(MVS_DIR, ignore_errors=True)
-    cams = mvs_fixture_cams()
+    cams = list(range(49))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "diner_tpu_torch.data.dtu_fixture",
@@ -3406,22 +3414,27 @@ def write_test_scan(root, cams):
 
 def fuse_ground_truth(cams):
     """The fixture's ground-truth depths of ``cams`` (consistent by
-    construction) with confidence 1, every other view a source, fused by
-    the reprojection-consistency backend and by the C++ library at
-    ``scripts/mvs_test.py``'s defaults (conf 0.9, 3 consistent views) →
-    each backend's points, share of the pixels and seconds."""
-    from diner_tpu_torch.data.dtu_fixture import (fixture_intrinsics,
-                                                  make_camera)
+    construction) with confidence 1 and the cameras of
+    ``write_test_scan``'s cam files (the ones the fusion CLI reads), every
+    other view a source, fused by the reprojection-consistency backend and
+    by the C++ library at ``scripts/mvs_test.py``'s defaults (conf 0.9, 3
+    consistent views) → each backend's points, share of the pixels and
+    seconds, and the PLY the library's points were written to
+    (``gipuma_ply``, which ``pipeline`` holds the fusion CLI's against)."""
+    from diner_tpu_torch.data.dtu import read_cam_file
     from diner_tpu_torch.data.io import read_pfm, read_rgb
     from diner_tpu_torch.fusion.consistency import filter_and_fuse
-    from diner_tpu_torch.fusion.fusion import fake_normals, fuse_depth_maps
-    K = fixture_intrinsics()[1].astype(np.float32)
+    from diner_tpu_torch.fusion.fusion import (fake_normals, fuse_depth_maps,
+                                               write_ply)
+    cam_files = [read_cam_file(MVS_DIR / "test" / "scan1" / "cams" /
+                               f"{c:08d}_cam.txt") for c in cams]
+    K, Es = cam_files[0][0], [E for _, E, _ in cam_files]
     depths = [np.asarray(read_pfm(MVS_FIXTURE / "Depths" / "scan1" /
                                   f"depth_map_{c:04d}.pfm")[0], np.float32)
               for c in cams]
     images = [read_rgb(MVS_FIXTURE / "Rectified" / "scan1_train" /
-                       f"rect_{c + 1:03d}_3_r5000.png") for c in cams]
-    Es = [make_camera(c).astype(np.float32) for c in cams]
+                       f"rect_{c + 1:03d}_3_r5000.png")[..., :3]
+              for c in cams]
     n = len(cams)
     pairs = [(i, [j for j in range(n) if j != i]) for i in range(n)]
     pixels = sum(d.size for d in depths)
@@ -3436,10 +3449,12 @@ def fuse_ground_truth(cams):
                             np.full(n, K[0, 0], np.float32),
                             np.stack(images), num_consistent=3)
     t2 = time.perf_counter()
+    ply = MVS_DIR / "ground_truth_gipuma.ply"
+    write_ply(ply, fused)
     return dict(pixels=pixels, normal_points=len(pts),
                 normal_share=len(pts) / pixels, normal_s=t1 - t0,
                 gipuma_points=len(fused), gipuma_share=len(fused) / pixels,
-                gipuma_s=t2 - t1)
+                gipuma_s=t2 - t1, gipuma_ply=str(ply.relative_to(ROOT)))
 
 
 def phase_mvs_test(smi):
@@ -3516,100 +3531,7 @@ def phase_mvs_test(smi):
           and gt["gipuma_share"] > MVS_GT_FUSED_SHARE,
           f"ground-truth fusion kept {gt['normal_share']} / "
           f"{gt['gipuma_share']} of the pixels")
-    return {m: r["launches"] for m, r in runs.items()}
-
-
-def make_diner_tree(mvs_root, diner_root):
-    """DINER's layout of the fixture, whose loader reads the 512×640
-    canvas: each render ×1/2 (bilinear) and cropped as ``prepare_img``
-    crops (rows 44:556, cols 80:720), the light links kept; ``Depths`` and
-    ``Cameras`` linked to the MVS tree's, so DINER reads the PNGs
-    ``write_prediction`` wrote there; a split file naming the scan."""
-    import os
-
-    from PIL import Image
-    src = mvs_root / "Rectified" / "scan1_train"
-    dst = diner_root / "Rectified" / "scan1_train"
-    dst.mkdir(parents=True)
-    for p in sorted(src.iterdir()):
-        if p.is_symlink():
-            (dst / p.name).symlink_to(os.readlink(p))
-            continue
-        img = Image.open(p)
-        w, h = img.size[0] // 2, img.size[1] // 2
-        img = img.resize((w, h), Image.BILINEAR)
-        sw, sh = (w - 640) // 2, (h - 512) // 2
-        img.crop((sw, sh, sw + 640, sh + 512)).save(dst / p.name)
-    for sub in ("Depths", "Cameras"):
-        (diner_root / sub).symlink_to((mvs_root / sub).resolve())
-    (diner_root / "splits").mkdir()
-    (diner_root / "splits" / "dtu_val_all.txt").write_text("scan1\n")
-
-
-def phase_mvs_pipeline(wp):
-    """TransMVSNet's depth maps feeding DINER: the port's
-    ``DTUDataset(depth_fname="TransMVSNet")`` reads the PNGs of
-    ``mvs_write_prediction`` as the source views of target camera
-    ``MVS_TARGET_CAM``, and the DINER eval step at ``dtu_eval_config()``
-    (the fixture's znear / zfar) renders one 512×640 image from them.
-    Checks: the sample's source depths are the PNGs decoded and rescaled
-    exactly, and within one PNG unit of the depth maps the model made;
-    a finite image; kernels A 80 and C 480 times, B never."""
-    from diner_tpu_torch.data.dtu import DTU_SCALE_FACTOR, DTUDataset
-    from diner_tpu_torch.data.io import DEPTH_PNG_SCALE, read_depth_png
-    from diner_tpu_torch.mvs.predict import DTU_DEPTH_UNSCALE
-    from diner_tpu_torch.train.diner import create_model, make_eval_step
-    root = MVS_DIR / "diner"
-    make_diner_tree(MVS_FIXTURE, root)
-    ds = DTUDataset(root, "val", downsample=1.0, depth_fname="TransMVSNet",
-                    split_dir=root / "splits", only_cams=[MVS_TARGET_CAM])
-    sample = ds[0]
-    made = {int(r["name"][-8:-4]): r["depth"].numpy() for r in wp["records"]}
-    decoded_equal, model_err = True, 0.0
-    for j, cam in enumerate(MVS_SOURCE_CAMS):
-        got = sample["src_depths"][j, ..., 0]
-        d = read_depth_png(MVS_FIXTURE / "Depths" / "scan1" /
-                           f"depth_map_{cam:04d}_TransMVSNet.png")
-        d = d / DTU_SCALE_FACTOR
-        decoded_equal &= np.array_equal(got, d * ds.scale_factor)
-        model_err = max(model_err, float(np.abs(
-            got / ds.scale_factor - made[cam]).max()))
-
-    cfg = dataclasses.replace(dtu_eval_config(), znear=ds.znear,
-                              zfar=ds.zfar)
-    batch = {k: v[None] for k, v in sample.items()
-             if isinstance(v, np.ndarray)}
-    H, W = batch["target_rgb"].shape[1:3]
-    n_chunks = -(-H * W // cfg.renderer.ray_chunk)
-    model = create_model(cfg, batch, seed=0)
-    step = make_eval_step(model, cfg)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    rgb, depth = step(batch, generator=torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    t_render = time.perf_counter() - t0
-    launches = read_counts()
-    emit("mvs_pipeline", config="DTU eval protocol (bf16) on the fixture, "
-         "source depths from mvs_write_prediction", target_cam=MVS_TARGET_CAM,
-         src_view_ids=sample["src_view_ids"].tolist(),
-         src_depths_are_the_pngs=decoded_equal,
-         src_depth_max_abs_err_vs_model=model_err, render_s=t_render,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
-         share_depth_gt0=float((depth > 0).float().mean()),
-         rgb_mean=float(rgb.mean()))
-    check(sample["src_view_ids"].tolist() == list(MVS_SOURCE_CAMS),
-          f"source views {sample['src_view_ids']}")
-    check(decoded_equal, "DTUDataset's source depths are not the PNGs")
-    check(model_err <= 1.001 * DEPTH_PNG_SCALE * DTU_DEPTH_UNSCALE,
-          f"source depths {model_err} from the model's maps")
-    check(launches == (n_chunks, 0, 6 * n_chunks, 0, 0, 0),
-          f"DINER render launched kernels A, B, C, the DCN backward and the kNN "
-          f"{launches} times, expected ({n_chunks}, 0, {6 * n_chunks}, 0, 0)")
-    check_image(rgb, depth, 512, 640)
-    del model, step
-    torch.cuda.empty_cache()
-    return launches
+    return {m: r["launches"] for m, r in runs.items()}, gt
 
 
 def phase_mvs_small_reference():
@@ -3673,7 +3595,8 @@ def phase_mvs_small_reference():
 
 
 MVS_TRAIN_DIR = MVS_DIR / "train"
-MVS_TRAIN_STEPS = 6      # the f32 and bf16 runs
+MVS_TRAIN_STEPS = 6      # the f32 run
+MVS_TRAIN_BF16_STEPS = 2  # the bf16 run
 MVS_TRAIN_AUTOGRAD_STEPS = 3  # DCN_CUSTOM_VJP = False
 MVS_TRAIN_RESUME_STEPS = 2    # the second process, after the f32 run
 MVS_TRAIN_TAG = "mvs_train_result="
@@ -3729,9 +3652,10 @@ def phase_mvs_train(smi):
     train`` (subprocesses, ``MVS_TRAIN_CLI``) at the CLI's defaults
     (``scripts/mvs_train.py``'s: 512×640, 4 views, base_channels 8,
     ndepths 48/32/8, ratios 4/2/1, 192 hypotheses, batch 1) on the
-    fixture's scan: f32 for ``MVS_TRAIN_STEPS``, bf16 as long, autograd of
-    the DCN gathers for ``MVS_TRAIN_AUTOGRAD_STEPS``, ``--remat`` full and
-    selective one step each; a second process resumes the f32 run for
+    fixture's scan: f32 for ``MVS_TRAIN_STEPS``, bf16 for
+    ``MVS_TRAIN_BF16_STEPS``, autograd of the DCN gathers for
+    ``MVS_TRAIN_AUTOGRAD_STEPS``, ``--remat`` full and selective one step
+    each; a second process resumes the f32 run for
     ``MVS_TRAIN_RESUME_STEPS``; ``--mode write_prediction --ckpt`` the f32
     run's checkpoint (in this process); ``--mode profile`` (in this
     process) and one warm step under the profiler. Checks: every loss
@@ -3750,7 +3674,7 @@ def phase_mvs_train(smi):
     runs = {}
     plan = [
         ("f32", MVS_TRAIN_STEPS, [], True, TransMVSNetConfig()),
-        ("bf16", MVS_TRAIN_STEPS, ["--dtype", "bfloat16"], True,
+        ("bf16", MVS_TRAIN_BF16_STEPS, ["--dtype", "bfloat16"], True,
          TransMVSNetConfig()),
         ("autograd_dcn", MVS_TRAIN_AUTOGRAD_STEPS, [], False,
          TransMVSNetConfig()),
@@ -3851,12 +3775,11 @@ def phase_mvs_train(smi):
 
 
 def mvs_train_profile():
-    """One warm training step at the CLI's defaults under the profiler, f32
-    (``mvs_train_profile``, then 3 more steps timed between CUDA events,
-    ``utils/profiling.py:time_fn``, TF32 off: ``mvs_train_step``) and bf16
-    (``mvs_train_profile_bf16``): the device's idle share, the top ops and
-    each port kernel's device time and launches (the DCN backward's must be
-    ``DCN_BWD_PER_STEP``)."""
+    """One warm f32 training step at the CLI's defaults under the profiler
+    (``mvs_train_profile``: the device's idle share, the top ops and each
+    port kernel's device time and launches, the DCN backward's
+    ``DCN_BWD_PER_STEP``), then 3 more steps timed between CUDA events
+    (``utils/profiling.py:time_fn``, TF32 off: ``mvs_train_step``)."""
     from diner_tpu_torch.mvs.datasets import MVSDTUDataset
     from diner_tpu_torch.mvs.train import (MVSTrainConfig, batch_to_device,
                                            create_mvs_state,
@@ -3864,22 +3787,19 @@ def mvs_train_profile():
     from diner_tpu_torch.data.loader import collate
     ds = MVSDTUDataset(MVS_FIXTURE, MVS_FIXTURE / "list.txt", "train")
     batch = batch_to_device(collate([ds[0]]), "cuda")
-    for dtype, phase in (("float32", "mvs_train_profile"),
-                         ("bfloat16", "mvs_train_profile_bf16")):
-        cfg = MVSTrainConfig(compute_dtype=dtype)
-        state = create_mvs_state(cfg, seed=0, device="cuda")
-        step = make_mvs_train_step(state, cfg)
-        step(batch)
-        port = profile_once(phase, lambda: step(batch))
-        check(port["dcn_sample_bwd"]["launches"] == DCN_BWD_PER_STEP,
-              f"{phase}: DCN backward launches {port['dcn_sample_bwd']}, "
-              f"expected {DCN_BWD_PER_STEP}")
-        if dtype == "float32":
-            timed = time_fn(step, batch, warmup=0, iters=3)
-            emit("mvs_train_step", **timed)
-            check(state.step == 5, f"in-process train steps: {state.step}")
-        del state, step
-        torch.cuda.empty_cache()
+    cfg = MVSTrainConfig()
+    state = create_mvs_state(cfg, seed=0, device="cuda")
+    step = make_mvs_train_step(state, cfg)
+    step(batch)
+    port = profile_once("mvs_train_profile", lambda: step(batch))
+    check(port["dcn_sample_bwd"]["launches"] == DCN_BWD_PER_STEP,
+          f"mvs_train_profile: DCN backward launches "
+          f"{port['dcn_sample_bwd']}, expected {DCN_BWD_PER_STEP}")
+    timed = time_fn(step, batch, warmup=0, iters=3)
+    emit("mvs_train_step", **timed)
+    check(state.step == 5, f"in-process train steps: {state.step}")
+    del state, step
+    torch.cuda.empty_cache()
 
 
 def mvs_small_batch(H, W, V, seed):
@@ -4060,23 +3980,403 @@ def phase_mvs_train_small_reference():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ the pipeline
+
+PIPELINE_DIR = OUT_DIR / "pipeline"
+PIPELINE_TAG = "pipeline_stage_result="
+PIPELINE_LOSS_TAG = "pipeline_step_losses="
+PIPELINE_INIT_TAG = "pipeline_init_launches="
+# ``python -m diner_tpu_torch.pipeline``'s full recipe with only its depth
+# cut: 3 MVS steps (of 30), 25 DINER steps (of 2000: the template logs a row
+# every 25), one validation hook at the last step (2 views, one sweep of 2
+# frames: of 100 views and 4 sweeps of 30), 2 images scored (of 3)
+PIPELINE_MVS_STEPS = 3
+PIPELINE_DINER_STEPS = 25
+PIPELINE_VAL_VIEWS, PIPELINE_SWEEPS, PIPELINE_SWEEP_FRAMES = 2, 1, 2
+PIPELINE_EVAL_N = 2
+PIPELINE_CUTS = [
+    "--mvs-steps", PIPELINE_MVS_STEPS, "--diner-steps", PIPELINE_DINER_STEPS,
+    "--val-interval", PIPELINE_DINER_STEPS, "--val-views",
+    PIPELINE_VAL_VIEWS, "--n-sweeps", PIPELINE_SWEEPS, "--sweep-frames",
+    PIPELINE_SWEEP_FRAMES, "--eval-n", PIPELINE_EVAL_N]
+# the stages' setups under ``counted_cli``: write_prediction saves each
+# depth map it writes as ``<stem>.npy`` in MAPS_DIR; DINER training and the
+# prediction folder print, when they exit, the launches of each
+# ``create_model`` (its probe of the init, redrawn while dead) and DINER
+# training every step's loss
+PIPELINE_SAVE_MAPS = (
+    "import numpy as np\n"
+    "from pathlib import Path\n"
+    "from diner_tpu_torch.mvs import predict as _predict\n"
+    "_run_model = _predict.run_model\n"
+    "def _saving_run_model(model, sample, device):\n"
+    "    out = _run_model(model, sample, device)\n"
+    "    np.save(Path(MAPS_DIR) / (Path(sample['dpath']).stem + '.npy'),\n"
+    "            out['depth'][0].float().cpu().numpy())\n"
+    "    return out\n"
+    "_predict.run_model = _saving_run_model\n")
+PIPELINE_INIT_LAUNCHES = (
+    "import atexit\n"
+    "from diner_tpu_torch.train import diner as _diner, loop as _loop\n"
+    "_inits, _create = [], _diner.create_model\n"
+    "def _counted_create(*a, **k):\n"
+    "    before = read_counts()\n"
+    "    model = _create(*a, **k)\n"
+    "    _inits.append([x - y for x, y in zip(read_counts(), before)])\n"
+    "    return model\n"
+    "_diner.create_model = _loop.create_model = _counted_create\n"
+    f"atexit.register(lambda: print({PIPELINE_INIT_TAG!r} + "
+    "json.dumps(_inits)))\n")
+PIPELINE_STEP_LOSSES = (
+    "from diner_tpu_torch.train.diner import TrainStep\n"
+    "_losses, _call = [], TrainStep.__call__\n"
+    "def _logged_call(self, *a, **k):\n"
+    "    out = _call(self, *a, **k)\n"
+    "    _losses.append(float(out['total']))\n"
+    "    return out\n"
+    "TrainStep.__call__ = _logged_call\n"
+    f"atexit.register(lambda: print({PIPELINE_LOSS_TAG!r} + "
+    "json.dumps(_losses)))\n")
+PIPELINE_SETUPS = {"train": PIPELINE_INIT_LAUNCHES + PIPELINE_STEP_LOSSES,
+                   "predict": PIPELINE_INIT_LAUNCHES}
+
+
+def pipeline_runner(stages, maps_dir):
+    """A stage runner for ``pipeline.main``: the stage's ``main`` under
+    ``counted_cli`` in a subprocess (every launch count 0 just before it,
+    read just after), its output appended to the pipeline's log. Appends
+    to ``stages`` the stage's name, seconds, launches, peak allocation,
+    main's return value, the launches of each DINER ``create_model`` and
+    DINER training's loss at each step; a stage that fails fails the
+    run."""
+    def run(module, args, log):
+        args = [str(a) for a in args]
+        name = module.split(".")[-1]
+        if name == "mvs":
+            name = "mvs_" + args[args.index("--mode") + 1]
+        setup = PIPELINE_SETUPS.get(name, "")
+        if name == "mvs_write_prediction":
+            setup = PIPELINE_SAVE_MAPS.replace("MAPS_DIR",
+                                               repr(str(maps_dir)))
+        package = name.startswith("mvs") or name == "train"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", counted_cli(
+                module + (".__main__" if package else ""), PIPELINE_TAG,
+                setup), *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        with open(log, "a") as f:
+            f.write(f"\n$ python -m {module} {' '.join(args)}\n"
+                    f"{proc.stdout}{proc.stderr}")
+        found = {tag: json.loads(ln[len(tag):])
+                 for ln in proc.stdout.splitlines()
+                 for tag in (PIPELINE_TAG, PIPELINE_LOSS_TAG,
+                             PIPELINE_INIT_TAG)
+                 if ln.startswith(tag)}
+        check(proc.returncode == 0 and PIPELINE_TAG in found,
+              f"pipeline stage {name} exited {proc.returncode}: "
+              f"{(proc.stdout + proc.stderr)[-3000:]}")
+        result = found[PIPELINE_TAG]
+        stages.append(dict(stage=name, seconds=seconds,
+                           launches=result["launches"],
+                           peak_mem_bytes=result["peak"],
+                           records=result["records"],
+                           init_launches=found.get(PIPELINE_INIT_TAG, []),
+                           step_losses=found.get(PIPELINE_LOSS_TAG)))
+    return run
+
+
+def pipeline_expected_launches(work):
+    """(A, B, C, DCN backward, kNN, R) launches each stage must make:
+    TransMVSNet's steps with full remat (``mvs_train_launches``); 4 maps
+    of ``MVS_C_PER_MAP[4]``; DINER's steps (A 1, B 1, C 6) and the
+    validation hook's images (A 1 and C 6 a ray chunk); the prediction
+    folder's images at 512×640; none for the scores. A ``create_model``'s
+    probe of its init comes on top (``pipeline_runner``)."""
+    from diner_tpu_torch.mvs.model import TransMVSNetConfig
+    from diner_tpu_torch.train.config import load_train_config
+    per_c, per_d = mvs_train_launches(TransMVSNetConfig(remat=True), 4)
+
+    def chunks(cfg_name):
+        run = load_train_config(work / cfg_name)
+        ds = run.raw["data"]["val"]["dataset"]["kwargs"]["downsample"]
+        return -(-int(512 * ds) * int(640 * ds)
+                 // run.diner.renderer.ray_chunk)
+
+    steps, mvs = PIPELINE_DINER_STEPS, PIPELINE_MVS_STEPS
+    val = (PIPELINE_VAL_VIEWS + PIPELINE_SWEEPS * PIPELINE_SWEEP_FRAMES
+           ) * chunks("train_diner_pipeline.yaml")
+    ev = PIPELINE_EVAL_N * chunks("eval_diner_pipeline.yaml")
+    return {"mvs_train": [0, 0, per_c * mvs, per_d * mvs, 0, 0],
+            "mvs_write_prediction": [0, 0, 4 * MVS_C_PER_MAP[4], 0, 0, 0],
+            "train": [steps + val, steps, 6 * (steps + val), 0, 0, 0],
+            "predict": [ev, 0, 6 * ev, 0, 0, 0],
+            "evaluate": [0, 0, 0, 0, 0, 0]}
+
+
+def pipeline_seam(work, maps_dir):
+    """The MVS → DINER seam: the prediction stage's ``DTUDataset(
+    depth_fname="TransMVSNet")`` (downsample 1) reads, as the source views
+    of ``MVS_TARGET_CAM``, the PNGs decoded and rescaled exactly, each
+    within one PNG unit of the map write_prediction made; the training
+    stage's dataset reads the same files (its ``Depths`` is the fixture's,
+    its depth name TransMVSNet)."""
+    from diner_tpu_torch.data.dtu import DTU_SCALE_FACTOR
+    from diner_tpu_torch.data.io import DEPTH_PNG_SCALE, read_depth_png
+    from diner_tpu_torch.mvs.predict import DTU_DEPTH_UNSCALE
+    from diner_tpu_torch.train.config import load_train_config
+    ds = load_train_config(work / "eval_diner_pipeline.yaml").build_dataset(
+        "val")
+    train_ds = load_train_config(
+        work / "train_diner_pipeline.yaml").build_dataset("train")
+    idx = next(i for i, m in enumerate(ds.metas)
+               if int(ds.cam_dict["ids"][m["cam_idx"]]) == MVS_TARGET_CAM)
+    sample = ds[idx]
+    decoded_equal, png_err, model_err = True, 0.0, 0.0
+    for j, cam in enumerate(MVS_SOURCE_CAMS):
+        got = sample["src_depths"][j, ..., 0]
+        d = read_depth_png(MVS_FIXTURE / "Depths" / "scan1" /
+                           f"depth_map_{cam:04d}_TransMVSNet.png")
+        made = np.load(maps_dir / f"depth_map_{cam:04d}.npy")
+        png_err = max(png_err, float(np.abs(d * DTU_DEPTH_UNSCALE
+                                            - made).max()))
+        decoded_equal &= np.array_equal(got, d / DTU_SCALE_FACTOR
+                                        * ds.scale_factor)
+        model_err = max(model_err, float(np.abs(
+            got / ds.scale_factor - made).max()))
+    lsb = DEPTH_PNG_SCALE * DTU_DEPTH_UNSCALE
+    seam = dict(target_cam=MVS_TARGET_CAM, downsample=ds.downsample,
+                src_view_ids=sample["src_view_ids"].tolist(),
+                src_depths_are_the_pngs=decoded_equal,
+                png_max_abs_err_vs_map=png_err,
+                src_depth_max_abs_err_vs_map=model_err, png_unit=lsb,
+                train_depths=str(train_ds.data_dir / "Depths"),
+                train_depth_fname=train_ds.depth_fname,
+                train_downsample=train_ds.downsample)
+    check(seam["src_view_ids"] == list(MVS_SOURCE_CAMS),
+          f"source views {seam['src_view_ids']}")
+    check(decoded_equal, "DTUDataset's source depths are not the PNGs")
+    check(png_err <= 1.001 * lsb and model_err <= 1.001 * lsb,
+          f"PNGs {png_err} / source depths {model_err} from the maps")
+    check((train_ds.data_dir / "Depths").resolve()
+          == (MVS_FIXTURE / "Depths").resolve()
+          and train_ds.depth_fname == "TransMVSNet",
+          f"the training stage reads {seam['train_depths']} "
+          f"({train_ds.depth_fname})")
+    return seam
+
+
+def ply_records(path):
+    """A binary PLY's header and its vertex records, each one byte string,
+    sorted: the fusion core's threads append points in any order (one
+    sort of byte strings, many times faster than a row-wise lexsort of
+    floats on millions of points)."""
+    data = Path(path).read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode("ascii").splitlines()
+    n = int(header[2].split()[-1])
+    width = sum(4 if h.split()[1] == "float" else 1 for h in header
+                if h.startswith("property "))
+    return header, np.sort(np.frombuffer(data, f"S{width}", n, end))
+
+
+def start_fusion_cli(scan_dir, out):
+    """Start ``python -m diner_tpu_torch.fusion`` at its defaults on a
+    dense folder; returns a function that waits for it and gives the
+    points it reports."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "diner_tpu_torch.fusion", "--scan_dir",
+         str(scan_dir), "--out", str(out)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def points():
+        stdout, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"fusion CLI on {scan_dir} exited "
+              f"{proc.returncode}: {err[-2000:]}")
+        return int(stdout.split()[1])
+    return points
+
+
+def write_ground_truth_folder(cams, dst):
+    """The fixture's ground truth of ``cams`` as a dense folder: the test
+    scan's cam files, the depth PFMs and light-3 renders linked, and a
+    confidence of 1."""
+    from diner_tpu_torch.data.io import write_pfm
+    for sub in ("cams", "depth_est", "confidence", "images"):
+        (dst / sub).mkdir(parents=True)
+    for c in cams:
+        stem = f"{c:08d}"
+        shutil.copy(MVS_DIR / "test" / "scan1" / "cams" / f"{stem}_cam.txt",
+                    dst / "cams")
+        depth = MVS_FIXTURE / "Depths" / "scan1" / f"depth_map_{c:04d}.pfm"
+        (dst / "depth_est" / f"{stem}.pfm").symlink_to(depth)
+        (dst / "images" / f"{stem}.png").symlink_to(
+            MVS_FIXTURE / "Rectified" / "scan1_train" /
+            f"rect_{c + 1:03d}_3_r5000.png")
+        write_pfm(dst / "confidence" / f"{stem}.pfm",
+                  np.ones((1200, 1600), np.float32))
+
+
+def phase_pipeline(smi, gt):
+    """``python -m diner_tpu_torch.pipeline`` (``main`` in this process,
+    each stage a subprocess through ``pipeline_runner``) on the fixture at
+    the full recipe's widths (TransMVSNet 512×640, 48/32/8 of 192, bf16,
+    remat; DINER ResNet34, ResnetFC 5 × 512, 40 of 1000 samples, 15
+    Gaussians, 128 rays, a 64 px VGG patch at downsample 0.5; the
+    prediction folder at 512×640 with 64 samples), its depth cut
+    (``PIPELINE_CUTS``). After the chain, with nothing else running,
+    ``python -m diner_tpu_torch.fusion`` at its defaults fuses the
+    fixture's ground truth and ``mvs_test``'s gipuma dense folder (two
+    processes at once). Checks: every stage exits 0 with the launches its
+    path makes (``pipeline_expected_launches``); finite MVS losses, no step
+    skipped, 4 maps written; the seam (``pipeline_seam``); every DINER
+    step's loss and every logged row finite; 2 pred / gt pairs; finite
+    scores in ``PIPELINE_RESULT.json``; each stage's peak within
+    ``MEMORY_SHARE_LIMIT`` of the card; both fusion CLIs exit 0, and on the
+    ground truth their PLY holds the header and the points, byte for byte,
+    of ``mvs_test``'s in-process fusion (``gt``; on ``mvs_test``'s folder,
+    where the seeded weights leave no consistent depth, only the count of
+    its gipuma PLY). Returns the launches of all stages."""
+    import gc
+
+    from diner_tpu_torch import pipeline
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    maps_dir = PIPELINE_DIR / "maps"
+    maps_dir.mkdir(parents=True)
+    work = PIPELINE_DIR / "work"
+    stages = []
+    gc.collect()
+    torch.cuda.empty_cache()  # the stages need all but the context's memory
+    t0 = time.perf_counter()
+    summary = pipeline.main(
+        ["--root", str(MVS_FIXTURE), "--workdir", str(work), "--device",
+         "cuda", *map(str, PIPELINE_CUTS)],
+        run_stage=pipeline_runner(stages, maps_dir))
+    t_pipeline = time.perf_counter() - t0
+
+    test_dir = MVS_DIR / "test_gipuma"
+    write_ground_truth_folder(sorted(MVS_SOURCE_CAMS + (MVS_TARGET_CAM,)),
+                              PIPELINE_DIR / "ground_truth")
+    t0 = time.perf_counter()
+    gt_points = start_fusion_cli(PIPELINE_DIR / "ground_truth",
+                                 PIPELINE_DIR / "fused_gt.ply")
+    test_points = start_fusion_cli(test_dir / "scan1",
+                                   PIPELINE_DIR / "fused_test.ply")
+    n_gt, n_test = gt_points(), test_points()
+    t_fusion = time.perf_counter() - t0
+    gt_header, gt_cli = ply_records(PIPELINE_DIR / "fused_gt.ply")
+    gt_ref_header, gt_ref = ply_records(ROOT / gt["gipuma_ply"])
+    same_gt = gt_header == gt_ref_header and np.array_equal(gt_cli, gt_ref)
+    del gt_cli, gt_ref
+    by_stage = {s["stage"]: s for s in stages}
+    expected = pipeline_expected_launches(work)
+    check([s["stage"] for s in stages] == list(expected),
+          f"pipeline stages {[s['stage'] for s in stages]}")
+    for name, s in by_stage.items():
+        init = [sum(x) for x in zip([0] * 6, *s["init_launches"])]
+        path = [x - y for x, y in zip(s["launches"], init)]
+        check(path == expected[name] and init[:2] == [0, 0]
+              and init[3:] == [0, 0, 0]
+              and len(s["init_launches"]) == (name in PIPELINE_SETUPS),
+              f"pipeline {name}: kernel A, B, C, DCN backward, kNN and R "
+              f"launches {s['launches']} of which create_model "
+              f"{s['init_launches']}, expected {expected[name]} besides")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    check(all(s["peak_mem_bytes"] <= MEMORY_SHARE_LIMIT * total_mem
+              for s in stages), f"pipeline peaks "
+          f"{[s['peak_mem_bytes'] for s in stages]} of {total_mem} B")
+
+    mvs = by_stage["mvs_train"]["records"]
+    check([r["step"] for r in mvs] == list(range(1, PIPELINE_MVS_STEPS + 1))
+          and all(np.isfinite(r["loss"]) and r["skipped"] == 0
+                  for r in mvs), f"pipeline MVS steps {mvs}")
+    written = by_stage["mvs_write_prediction"]["records"]
+    maps = sorted(maps_dir.glob("*.npy"))
+    check(len(written) == 4 and len(maps) == 4
+          and all(np.isfinite(np.load(m)).all() for m in maps),
+          f"write_prediction wrote {written}, maps {maps}")
+    seam = pipeline_seam(work, maps_dir)
+
+    losses = by_stage["train"]["step_losses"]
+    run_dir = work / "diner" / "DINER_pipeline"
+    rows = [json.loads(ln) for ln in
+            (run_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+    check(len(losses) == PIPELINE_DINER_STEPS
+          and all(np.isfinite(x) for x in losses),
+          f"DINER step losses {losses}")
+    check([r["step"] for r in rows if "total" in r] == [PIPELINE_DINER_STEPS]
+          and any("valscores_psnr" in r for r in rows)
+          and all(np.isfinite(v) for r in rows for v in r.values()),
+          f"DINER logged rows {rows}")
+    pred = work / "prediction"
+    pairs = (len(list(pred.glob("*-pred.png"))),
+             len(list(pred.glob("*-gt.png"))))
+    result = json.loads((work / "PIPELINE_RESULT.json").read_text())
+    check(pairs == (PIPELINE_EVAL_N, PIPELINE_EVAL_N),
+          f"prediction folder pairs {pairs}")
+    check(result == summary and all(np.isfinite(result["scores"][k])
+                                    for k in ("psnr", "ssim", "l1", "l2")),
+          f"PIPELINE_RESULT.json {result}")
+
+    test_ply_points = len(ply_records(test_dir / "mvsnet_scan1.ply")[1])
+    fusion = dict(seconds=t_fusion, ground_truth_points=n_gt,
+                  ground_truth_share=n_gt / gt["pixels"],
+                  ground_truth_points_in_process=gt["gipuma_points"],
+                  ground_truth_ply_equal=same_gt, test_points=n_test,
+                  test_points_gipuma_ply=test_ply_points)
+    check(same_gt and n_gt == gt["gipuma_points"]
+          and n_gt / gt["pixels"] > MVS_GT_FUSED_SHARE,
+          f"fusion CLI on the ground truth: {fusion}")
+    check(n_test == test_ply_points, f"fusion CLI on {test_dir}: {fusion}")
+
+    launches = tuple(sum(s["launches"][i] for s in stages) for i in range(6))
+    emit("pipeline", config="python -m diner_tpu_torch.pipeline, the full "
+         "recipe (TransMVSNet 512×640 48/32/8 of 192 bf16 remat; DINER "
+         "ResNet34, ResnetFC 5×512, 40 of 1000 samples, 15 Gaussians, 128 "
+         "rays, 64 px VGG patch, downsample 0.5, bf16; prediction folder "
+         "512×640 with 64 samples) on the DTU fixture",
+         cuts=dict(mvs_steps=f"{PIPELINE_MVS_STEPS} of 30",
+                   diner_steps=f"{PIPELINE_DINER_STEPS} of 2000",
+                   validation_hooks="1 (at the last step) of 4",
+                   val_views=f"{PIPELINE_VAL_VIEWS} of 100",
+                   cam_sweeps=f"{PIPELINE_SWEEPS} of 4, "
+                   f"{PIPELINE_SWEEP_FRAMES} frames of 30",
+                   eval_n=f"{PIPELINE_EVAL_N} of 3"),
+         nvidia_smi=smi, seconds=t_pipeline,
+         stages_s={s["stage"]: s["seconds"] for s in stages},
+         result_stages_s=result["stages_s"], scores=result["scores"],
+         launches=launches,
+         launches_by_stage={s["stage"]: s["launches"] for s in stages},
+         init_launches_by_stage={s["stage"]: s["init_launches"]
+                                 for s in stages},
+         expected_launches_by_stage=expected,
+         peak_mem_bytes_by_stage={s["stage"]: s["peak_mem_bytes"]
+                                  for s in stages},
+         mvs_losses=[r["loss"] for r in mvs], diner_losses=losses,
+         diner_logged_rows=rows, seam=seam, prediction_pairs=pairs,
+         fusion=fusion)
+    return launches
+
+
 def phases_mvs(smi):
-    """The TransMVSNet phases in order; their files are deleted after.
-    Returns {path: (A, B, C, DCN backward) launches} and kernel C's MVS
-    rows."""
+    """The TransMVSNet phases in order, then the pipeline; their files are
+    deleted after. Returns {path: (A, B, C, DCN backward, kNN, R)
+    launches} and kernel C's MVS rows."""
     phase_mvs_fixture()
     wp = phase_mvs_write_prediction(smi)
     gather_rows = phase_gather_mvs(wp.pop("model"))
-    test_l = phase_mvs_test(smi)
-    pipeline_l = phase_mvs_pipeline(wp)
+    test_l, gt = phase_mvs_test(smi)
     phase_mvs_small_reference()
     train_l = phase_mvs_train(smi)
     phase_mvs_train_small_reference()
+    pipeline_l = phase_pipeline(smi, gt)
     shutil.rmtree(MVS_DIR, ignore_errors=True)
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
     return ({"mvs_write_prediction": wp["launches"],
              "mvs_test": test_l["normal"],
              "mvs_test_gipuma": test_l["gipuma"],
-             "mvs_pipeline": pipeline_l, **train_l}, gather_rows)
+             **train_l, "pipeline": pipeline_l}, gather_rows)
 
 
 # ------------------------------------------------------------------ kernel R

@@ -197,3 +197,48 @@ def read_ply(path):
                          f"{rec.itemsize}")
     data = np.frombuffer(body, rec)
     return floats, data["f"].copy(), (data["c"].copy() if n_colors else None)
+
+
+def fuse_dense_folder(scan_dir, stems, out, prob_threshold: float = 0.9,
+                      disp_threshold: float = 0.25,
+                      normal_threshold: float = 0.52,
+                      num_consistent: int = 3) -> np.ndarray:
+    """Fuse the views ``stems`` of a dense folder into the PLY ``out``
+    (gipuma.py:192-213): each depth map probability-filtered, constant
+    normals, :func:`fuse_depth_maps`. The folder holds
+    ``cams/<stem>_cam.txt``, ``depth_est/<stem>.pfm``,
+    ``confidence/<stem>.pfm`` and, for point colours,
+    ``images/<stem>.jpg|png`` (without them for every view, the PLY has
+    none). Returns the fused (N, 10) points."""
+    from diner_tpu_torch.data.dtu import read_cam_file
+    from diner_tpu_torch.data.io import read_pfm, read_rgb
+
+    scan = Path(scan_dir)
+    depths, Ps, focals, colors = [], [], [], []
+    for stem in stems:
+        depth = np.asarray(read_pfm(scan / "depth_est" / f"{stem}.pfm")[0],
+                           np.float32)
+        conf = np.asarray(read_pfm(scan / "confidence" / f"{stem}.pfm")[0],
+                          np.float32)
+        depths.append(probability_filter(depth, conf, prob_threshold))
+        K, E, _ = read_cam_file(scan / "cams" / f"{stem}_cam.txt")
+        Ps.append((K @ E[:3]).astype(np.float32))
+        focals.append(K[0, 0])
+        img = None
+        for ext in (".jpg", ".png"):
+            p = scan / "images" / f"{stem}{ext}"
+            if p.exists():
+                img = read_rgb(p)[..., :3]
+                break
+        colors.append(img)
+
+    depths = np.stack(depths)
+    colors = (np.stack(colors) if all(c is not None for c in colors)
+              else None)
+    pts = fuse_depth_maps(depths, np.stack([fake_normals(d) for d in depths]),
+                          np.stack(Ps), np.asarray(focals, np.float32),
+                          colors, disp_thresh=disp_threshold,
+                          normal_thresh=normal_threshold,
+                          num_consistent=num_consistent)
+    write_ply(out, pts, with_colors=colors is not None)
+    return pts

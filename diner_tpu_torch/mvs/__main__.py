@@ -268,3 +268,7 @@ def train(args, cfg, dataset, device):
             ckpt_lib.save_checkpoint(ckpt_dir, state)
     print("done")
     return records
+
+
+if __name__ == "__main__":
+    main()

@@ -140,16 +140,22 @@ def fuse_scan(args, scan, out_root):
     from diner_tpu_torch.data.io import read_pfm, read_rgb
     from diner_tpu_torch.fusion.consistency import (
         filter_and_fuse, filter_and_fuse_dynamic)
-    from diner_tpu_torch.fusion.fusion import (
-        fake_normals, fuse_depth_maps, probability_filter, write_ply)
+    from diner_tpu_torch.fusion.fusion import fuse_dense_folder, write_ply
     from diner_tpu_torch.mvs.eval_datasets import read_pair_file
 
     pairs = read_pair_file(Path(args.testpath) / scan / "pair.txt")
     scan_out = out_root / scan
     view_ids = sorted({r for r, _ in pairs}
                       | {s for _, srcs in pairs for s in srcs})
-    id_map = {v: i for i, v in enumerate(view_ids)}
+    ply_path = out_root / f"mvsnet_{scan}.ply"
+    if args.filter_method == "gipuma":
+        pts = fuse_dense_folder(scan_out, [f"{v:08d}" for v in view_ids],
+                                ply_path, prob_threshold=args.conf,
+                                num_consistent=args.thres_view)
+        print(f"fused {scan}: {len(pts)} points -> {ply_path}", flush=True)
+        return {"ply": str(ply_path), "points": int(len(pts))}
 
+    id_map = {v: i for i, v in enumerate(view_ids)}
     depths, confs, Ks, Es, images = [], [], [], [], []
     for vid in view_ids:
         depths.append(np.asarray(
@@ -165,32 +171,19 @@ def fuse_scan(args, scan, out_root):
 
     idx_pairs = [(id_map[r], [id_map[s] for s in srcs if s in id_map])
                  for r, srcs in pairs]
-    ply_path = out_root / f"mvsnet_{scan}.ply"
-    if args.filter_method == "gipuma":
-        d = np.stack([probability_filter(dd, cc, args.conf)
-                      for dd, cc in zip(depths, confs)])
-        normals = np.stack([fake_normals(dd) for dd in d])
-        Ps = np.stack([(K @ E[:3]).astype(np.float32)
-                       for K, E in zip(Ks, Es)])
-        pts = fuse_depth_maps(d, normals, Ps,
-                              np.asarray([K[0, 0] for K in Ks], np.float32),
-                              np.stack(images),
-                              num_consistent=args.thres_view)
-        write_ply(ply_path, pts)
+    if args.filter_method == "dynamic":
+        pts, colors, _ = filter_and_fuse_dynamic(
+            depths, confs, Ks, Es, idx_pairs, images=images,
+            photo_threshold=0.3, thres_view=args.thres_view)
     else:
-        if args.filter_method == "dynamic":
-            pts, colors, _ = filter_and_fuse_dynamic(
-                depths, confs, Ks, Es, idx_pairs, images=images,
-                photo_threshold=0.3, thres_view=args.thres_view)
-        else:
-            pts, colors, _ = filter_and_fuse(
-                depths, confs, Ks, Es, idx_pairs, images=images,
-                conf_thresh=args.conf, thres_view=args.thres_view)
-        pts = np.concatenate(
-            [pts, np.zeros_like(pts),
-             colors if colors is not None else np.zeros_like(pts)], axis=1)
-        write_ply(ply_path, pts, with_normals=False,
-                  with_colors=colors is not None)
+        pts, colors, _ = filter_and_fuse(
+            depths, confs, Ks, Es, idx_pairs, images=images,
+            conf_thresh=args.conf, thres_view=args.thres_view)
+    pts = np.concatenate(
+        [pts, np.zeros_like(pts),
+         colors if colors is not None else np.zeros_like(pts)], axis=1)
+    write_ply(ply_path, pts, with_normals=False,
+              with_colors=colors is not None)
     print(f"fused {scan}: {len(pts)} points -> {ply_path}", flush=True)
     return {"ply": str(ply_path), "points": int(len(pts))}
 

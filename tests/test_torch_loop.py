@@ -38,6 +38,17 @@ RUN_FIELDS = ("save_dir", "version", "model_name", "val_check_interval",
               "n_samples_score_eval", "cam_sweep_settings", "raw")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    workers at once on the host's cores, and with one torch thread per core
+    the trainer test runs tens of times slower among them than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=[p.stem for p in CONFIGS])
 def test_load_train_config_matches_jax(path):
     ours, ref = load_train_config(path), j_load_train_config(path)

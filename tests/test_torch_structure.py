@@ -54,7 +54,8 @@ def test_import_pulls_in_no_jax():
               "preprocessing.rasterize", "preprocessing.facescape",
               "preprocessing.facescape_pipeline", "preprocess_facescape",
               "preprocess_multiface", "geometry.cam_paths", "data.multiface",
-              "data.debug", "mvs.multiface_dataset"):
+              "data.debug", "mvs.multiface_dataset", "pipeline",
+              "fusion.__main__"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
