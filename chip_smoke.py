@@ -681,6 +681,8 @@ def profile_once(phase, fn):
     emit(phase, wall_ms=wall * 1e3, kernel_ms=busy_ms,
          idle_share=1 - busy_ms / (wall * 1e3),
          device_kernels=sum(e.count for e in kernels), port_kernels=port,
+         nccl_kernels={e.key: e.count for e in kernels
+                       if "nccl" in e.key.lower()},
          top_ops=[{"op": e.key, "device_ms": getattr(e, attr) / 1e3,
                    "calls": e.count} for e in top])
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1069,6 +1071,205 @@ def phase_train_grad_f32(state, vgg, b):
           f"grad {worst} at {name}")
 
 
+PARALLEL_STEPS = 3  # mesh steps held to the plain step
+PARALLEL_TIMED = 5  # steps of each kind timed between CUDA events
+PARALLEL_DIR = OUT_DIR / "parallel"
+# Adam's first step moves an element by lr · g / (|g| + ε), whose slope in
+# g is at most 1 / ε: a gradient Δg apart moves it at most lr · |Δg| / ε
+# apart
+ADAM_EPS = 1e-8
+
+
+def parallel_cli_config():
+    """``configs/train_dtu.yaml`` with ``data`` the sphere at 512×640 (one
+    scene a step), 2 steps, no validation, one checkpoint at the end: the
+    training CLI's ``--mesh`` run → its path."""
+    from diner_tpu_torch.train.config import load_train_config
+    raw = load_train_config(ROOT / "configs" / "train_dtu.yaml").raw
+    raw["data"] = sphere_data(2, 1, 1)
+    raw["logger"]["kwargs"]["save_dir"] = str(PARALLEL_DIR / "runs")
+    raw["trainer"]["kwargs"].update(max_steps=2, val_check_interval=0,
+                                    log_every_n_steps=1)
+    raw["checkpointing"]["kwargs"]["every_n_train_steps"] = 0
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    path = PARALLEL_DIR / "train_dtu_sphere_mesh.yaml"
+    path.write_text(json.dumps(raw, indent=1))
+    return path
+
+
+def phase_parallel_train(state0, vgg, b):
+    """The mesh train step (``parallel/``) on the card as a world of one
+    NCCL rank on a local store: ``make_mesh()`` is (1, 1), so the step runs
+    every collective of the mesh path (the gradient and metric all-reduces)
+    and must equal the plain ``TrainStep``. On ``phase_train_path``'s
+    production weights, VGG and batch (4 views at 512×640, 4,096 rays, the
+    64×64 patch), computed in f32 (in bf16 on an H100 the mesh step of one
+    rank, which computes what the plain step does, missed 1e-3 of the
+    norm at the first BN's bias gradient: the scatter-adds' and cuDNN's
+    atomics sum in a changing order, and bf16 rounds the difference up):
+    ``PARALLEL_STEPS`` first steps from the init weights on three draws
+    (the random-init field renders no density after a step of this recipe,
+    and every later gradient is 0, on both sides: ROADMAP §3), each on the
+    same draws on both sides, hold the loss (1e-5 relative), every gradient
+    (1e-3 of its norm), the parameters after Adam (lr · |Δg| / ε
+    elementwise, ``ADAM_EPS``) and the BN statistics (1e-5);
+    kernels A, B and C launch on the mesh step as on the plain one. Then,
+    at the production recipe (bf16), the seconds per step of each (CUDA
+    events) and the launches per step of each (a profile), with the NCCL
+    kernels by name, and ``python -m diner_tpu_torch.train ... --mesh
+    --max-steps 2`` in process on ``parallel_cli_config()``."""
+    from diner_tpu_torch.parallel import initialize, shutdown
+    cfg = dtu_train_config()
+    cfg32 = dataclasses.replace(cfg, nerf=dataclasses.replace(
+        cfg.nerf, compute_dtype="float32"))
+    t0 = time.perf_counter()
+    device = initialize()
+    try:
+        return parallel_steps(cfg, cfg32, state0, vgg, b, device, t0)
+    finally:
+        shutdown()
+
+
+def parallel_steps(cfg, cfg32, state0, vgg, b, device, t0):
+    """The body of :func:`phase_parallel_train` in its process group."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from diner_tpu_torch.models.pixelnerf import PixelNeRF
+    from diner_tpu_torch.parallel import (make_mesh,
+                                          make_parallel_train_step, shutdown)
+    from diner_tpu_torch.renderer import draw_noise
+    from diner_tpu_torch.train import checkpoint as ckpt_lib
+    from diner_tpu_torch.train.__main__ import main as train_main
+    from diner_tpu_torch.train.config import load_train_config
+    from diner_tpu_torch.train.diner import make_train_step, select_pixels
+    mesh = make_mesh()
+    backend = dist.get_backend()
+    t_init = time.perf_counter() - t0
+    check(device == torch.device("cuda", 0) and backend == "nccl"
+          and mesh.shape == {"data": 1, "rays": 1},
+          f"world of one: {device}, {backend}, mesh {mesh.shape}")
+
+    def model_from(c):
+        m = PixelNeRF(c.nerf)
+        m.load_state_dict(state0)
+        return m.cuda()
+
+    plain_step = make_train_step(model_from(cfg32), cfg32, vgg)
+    mesh_step = make_parallel_train_step(model_from(cfg32), cfg32, mesh, vgg)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows, mesh_counts = [], [0] * 6
+    for i in range(PARALLEL_STEPS):
+        for step in (plain_step, mesh_step):  # the init state, Adam's empty
+            step.model.load_state_dict(state0)
+            step.optimizer.state.clear()
+        before = {n: p.detach().clone()
+                  for n, p in plain_step.model.named_parameters()}
+        pix = select_pixels(cfg32, b, g)
+        noise = draw_noise(cfg32.renderer, 1, cfg32.rays_per_step,
+                           generator=g, device="cuda")
+        res = {}
+        for name, step in (("plain", plain_step), ("mesh", mesh_step)):
+            reset_counts()
+            metrics = step(b, noise=noise, pix_idcs=pix)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            res[name] = (float(metrics["total"]), grads_of(step.model),
+                         {n: p.detach() for n, p in
+                          step.model.named_parameters()},
+                         {n: t for n, t in step.model.named_buffers()},
+                         counts)
+        mesh_counts = [a + c for a, c in zip(mesh_counts, res["mesh"][4])]
+        for name in res:
+            grads = res[name][1]
+            check(np.isfinite(res[name][0]) and all(
+                bool(torch.isfinite(t).all()) for t in grads.values())
+                and any(bool((t != 0).any()) for t in grads.values()),
+                f"{name} step {i + 1}: loss {res[name][0]}, "
+                f"{sum(not bool(torch.isfinite(t).all()) for t in grads.values())}"
+                f" non-finite and {sum(not bool((t != 0).any()) for t in grads.values())}"
+                f" all-zero gradients of {len(grads)}")
+        loss_err = abs(res["mesh"][0] - res["plain"][0]) / abs(
+            res["plain"][0])
+        worst, name, nonzero = grad_errs(res["mesh"][1], res["plain"][1])
+        excess = max(float((
+            (res["mesh"][2][n] - res["plain"][2][n]).abs()
+            - cfg.lr * (res["mesh"][1][n] - res["plain"][1][n]).abs()
+            / ADAM_EPS).max()) for n in before)
+        moved = sum(not torch.equal(res["plain"][2][n], before[n])
+                    for n in before)
+        stats_err = max(float((res["mesh"][3][n] - t).abs().max())
+                        for n, t in res["plain"][3].items())
+        rows.append(dict(step=i + 1, loss_plain=res["plain"][0],
+                         loss_mesh=res["mesh"][0], loss_rel_err=loss_err,
+                         worst_grad_err_over_norm=worst, worst_param=name,
+                         params_grad_nonzero=nonzero,
+                         param_excess_over_adam_bound=excess,
+                         params_moved=moved, bn_stats_max_abs_err=stats_err,
+                         launches_plain=res["plain"][4],
+                         launches_mesh=res["mesh"][4]))
+        check(res["mesh"][4] == res["plain"][4] == (1, 1, 6, 0, 0, 0),
+              f"step {i + 1}: launches mesh {res['mesh'][4]}, plain "
+              f"{res['plain'][4]}, expected (1, 1, 6, 0, 0, 0)")
+        check(loss_err <= 1e-5 and worst <= 1e-3 and excess <= 1e-6
+              and stats_err <= 1e-5 and moved > 0,
+              f"mesh vs plain step {i + 1}: loss {loss_err}, grad {worst} "
+              f"at {name}, params {excess} over the Adam bound, stats "
+              f"{stats_err}, {moved} parameters moved")
+
+    # the production recipe (bf16) for the times and the launches
+    plain_step = make_train_step(model_from(cfg), cfg, vgg)
+    mesh_step = make_parallel_train_step(model_from(cfg), cfg, mesh, vgg)
+    ms = {"plain": cuda_time_ms(lambda: plain_step(b, generator=g),
+                                PARALLEL_TIMED, 1),
+          "mesh": cuda_time_ms(lambda: mesh_step(b, generator=g),
+                               PARALLEL_TIMED, 1)}
+    profiles = {}
+    for name, step in (("plain", plain_step), ("mesh", mesh_step)):
+        profile_once(f"parallel_train_{name}_profile",
+                     lambda: step(b, generator=g))
+        profiles[name] = LOG[-1]
+    del plain_step, mesh_step
+    shutdown()  # the CLI joins and leaves a world of its own
+    torch.cuda.empty_cache()
+
+    # the CLI's --mesh in process: it joins a world of one and leaves it
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    cfg_path = parallel_cli_config()
+    run_dir = load_train_config(cfg_path).run_dir
+    reset_counts()
+    t1 = time.perf_counter()
+    train_main([str(cfg_path), "DINER", "--mesh", "--max-steps", "2",
+                "--num-workers", "0"])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t1
+    cli_launches = read_counts()
+    saved = ckpt_lib.load_state(run_dir / "checkpoints" / "step_00000002")
+    check(saved["step"] == 2 and not dist.is_initialized(),
+          f"--mesh CLI: checkpoint step {saved['step']}, process group "
+          f"left {dist.is_initialized()}")
+    # 2 steps of (1, 1, 6) and create_model's init probe (5 C)
+    check(cli_launches == (2, 2, 17, 0, 0, 0),
+          f"--mesh CLI launches {cli_launches}, expected (2, 2, 17, ...)")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    emit("parallel_train", config="DTU production train step, bf16, sphere "
+         "scene 512x640 nv=4, 64x64 patch, mesh (1, 1) over NCCL",
+         mesh=mesh.shape, backend=backend, world_size=mesh.size,
+         init_s=t_init, steps=rows, s_per_step_plain=ms["plain"] / 1e3,
+         s_per_step_mesh=ms["mesh"] / 1e3,
+         device_kernels_per_step_plain=profiles["plain"]["device_kernels"],
+         device_kernels_per_step_mesh=profiles["mesh"]["device_kernels"],
+         nccl_kernels_mesh=profiles["mesh"]["nccl_kernels"],
+         nccl_kernels_plain=profiles["plain"]["nccl_kernels"],
+         launches_mesh_steps=tuple(mesh_counts),
+         cli_s=t_cli, cli_launches=cli_launches, cli_steps=saved["step"],
+         compared_in="float32", timed_in=cfg.nerf.compute_dtype,
+         tol=dict(loss=1e-5, grad=1e-3, params="lr·|Δg|/ε + 1e-6",
+                  stats=1e-5))
+    return tuple(mesh_counts), cli_launches
+
+
 def phase_train_small_reference(pruned=False):
     """A small production step on the card against the same step on the
     CPU: same weights, VGG, pixels and noise, f32; with the one-stage or
@@ -1133,6 +1334,8 @@ TRAIN_LOOP_BATCH = 4  # scenes per step, configs/train_dtu.yaml's own
 # validation's camera sweep, cut from the default 30 frames of 4 sweeps
 # (120 f32 renders) to one sweep of 2 frames
 TRAIN_LOOP_SWEEP = {"nframes": 2, "n_cam_sweeps": 1}
+# validation images scored at step 6 (2 until PR 16)
+TRAIN_LOOP_EVAL_N = 1
 # the train loop's peak allocation, in the CLI and in the resumed fit, may
 # take this share of the card's memory: the rest is the CUDA context's and
 # the caching allocator's headroom
@@ -1152,8 +1355,9 @@ def train_loop_config():
     with only ``data`` replaced (the analytic sphere at the DTU image size:
     512×640, 4 source views; 8 train and 2 val scenes, the config's batch
     of 4 scenes) and the trainer settings of this phase: 6 steps, a
-    checkpoint every 3, one validation at step 6 over 2 images with a
-    camera sweep of ``TRAIN_LOOP_SWEEP``, a log row every step. Written as
+    checkpoint every 3, one validation at step 6 over
+    ``TRAIN_LOOP_EVAL_N`` images with a camera sweep of
+    ``TRAIN_LOOP_SWEEP``, a log row every step. Written as
     JSON (valid YAML) → its path."""
     from diner_tpu_torch.train.config import load_train_config
     raw = load_train_config(ROOT / "configs" / "train_dtu.yaml").raw
@@ -1162,7 +1366,7 @@ def train_loop_config():
     raw["trainer"]["kwargs"].update(max_steps=6, val_check_interval=6,
                                     log_every_n_steps=1)
     raw["checkpointing"]["kwargs"]["every_n_train_steps"] = 3
-    raw["optimizer"]["kwargs"]["n_samples_score_eval"] = 2
+    raw["optimizer"]["kwargs"]["n_samples_score_eval"] = TRAIN_LOOP_EVAL_N
     raw["optimizer"]["kwargs"]["cam_sweep_settings"] = TRAIN_LOOP_SWEEP
     path = TRAIN_LOOP_DIR / "train_dtu_sphere.yaml"
     path.write_text(json.dumps(raw, indent=1))
@@ -1191,9 +1395,10 @@ def phase_train_loop():
     samples from 1000 candidates, MSE + 0.1·VGG + 1.0·antibias, f32, 4
     scenes a step) with checkpoints at 3 and 4; then
     ``Trainer.fit(max_steps=6)`` in this process resumes from step 4,
-    checkpoints and validates at step 6 (a prediction folder of 2 images,
-    scored, and one camera sweep of 2 frames: cut from 4 sweeps of 30, see
-    ``TRAIN_LOOP_SWEEP``). Checks: the step counts; the checkpoints (6 is
+    checkpoints and validates at step 6 (a prediction folder of
+    ``TRAIN_LOOP_EVAL_N`` image, scored, and one camera sweep of 2 frames:
+    cut from 4 sweeps of 30, see ``TRAIN_LOOP_SWEEP``); the profiler
+    watches the fit's two train steps. Checks: the step counts; the checkpoints (6 is
     the fit's final state bit for bit; a fresh TrainStep restored from the
     CLI's 4 holds it bit for bit, and its step 5 on the fit's batch and
     generator state gives the fit's step-5 losses and update); finite
@@ -1259,15 +1464,28 @@ def phase_train_loop():
         return torch.cat([p.detach().flatten()
                           for p in train_step.model.parameters()])
 
+    # the profiler watches the resumed steps 5 and 6 and the loop between
+    # them, not the validation renders (under it they took ≈ 60 s more)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof_wall = {}
+
     def spied_train_call(self, batch, generator=None, **kwargs):
         first = self.step == 4 and not step5
         if first:
             step5.update(batch=batch, gen_state=generator.get_state())
+            torch.cuda.synchronize()
+            prof.start()
+            prof_wall["start"] = time.perf_counter()
         out = record("train", self.step, train_call, self, batch,
                      generator=generator, **kwargs)
         if first:
             step5.update(losses={k: float(v) for k, v in out.items()},
                          params=params_of(self))
+        if self.step == 6 and "end" not in prof_wall:
+            prof.stop()
+            prof_wall["end"] = time.perf_counter()
         return out
 
     def spied_make_eval(*args, **kwargs):
@@ -1282,11 +1500,8 @@ def phase_train_loop():
     try:
         trainer = loop.Trainer(run_cfg, device="cuda")
         t1 = time.perf_counter()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            ts = trainer.fit(max_steps=6)
-            torch.cuda.synchronize()
+        ts = trainer.fit(max_steps=6)
+        torch.cuda.synchronize()
         t_fit = time.perf_counter() - t1
     finally:
         TrainStep.__call__, loop.make_eval_step = train_call, make_eval
@@ -1302,11 +1517,11 @@ def phase_train_loop():
           f"kernel A, B, C, DCN backward and kNN launches per train step "
           f"{[c[1] for c in calls['train']]}, expected (1, 1, 6, 0, 0, 0)")
     n_sweep = TRAIN_LOOP_SWEEP["nframes"] * TRAIN_LOOP_SWEEP["n_cam_sweeps"]
-    check(len(calls["eval"]) == 2 + n_sweep and all(
+    check(len(calls["eval"]) == TRAIN_LOOP_EVAL_N + n_sweep and all(
         c[1] == (n_chunks, 0, 6 * n_chunks, 0, 0, 0) for c in calls["eval"]),
         f"launches per validation and sweep image "
-        f"{[c[1] for c in calls['eval']]}, expected 2 + {n_sweep} times "
-        f"({n_chunks}, 0, {6 * n_chunks}, 0, 0, 0)")
+        f"{[c[1] for c in calls['eval']]}, expected {TRAIN_LOOP_EVAL_N} + "
+        f"{n_sweep} times ({n_chunks}, 0, {6 * n_chunks}, 0, 0, 0)")
 
     names = sorted(p.name for p in ckpt_dir.iterdir() if p.is_dir())
     check(names == ["step_00000003", "step_00000004", "step_00000006"],
@@ -1355,7 +1570,8 @@ def phase_train_loop():
           f"non-finite logged value in {rows}")
     eval_dir = run_cfg.run_dir / "eval_000006"
     preds = sorted((eval_dir / "visualizations").glob("*-pred.png"))
-    check(len(preds) == 2, f"prediction folder holds {len(preds)} images")
+    check(len(preds) == TRAIN_LOOP_EVAL_N,
+          f"prediction folder holds {len(preds)} images")
     scores = json.loads((eval_dir / "average_scores.json").read_text())
     keys = ("psnr", "ssim", "l1", "l2", "lpips_proxy")
     check(all(np.isfinite(scores.get(k, float("nan"))) for k in keys),
@@ -1373,23 +1589,26 @@ def phase_train_loop():
     from torch.autograd import DeviceType
     busy_ms = sum(getattr(e, attr) for e in events
                   if e.device_type == DeviceType.CUDA) / 1e3
+    t_prof = prof_wall["end"] - prof_wall["start"]
     (OUT_DIR / "chip_smoke_train_loop_profile.txt").write_text(
         events.table(sort_by=attr, row_limit=60))
     cli_steps = [1 / r["steps_per_sec"] for r in train_rows[:4]]
     emit("train_loop",
          config=f"configs/train_dtu.yaml, data: synthetic_sphere {H}x{W} "
          f"nv=4, batch {TRAIN_LOOP_BATCH}, f32; 6 steps, checkpoints every "
-         "3, validation at 6 over 2 images, camera sweep "
+         f"3, validation at 6 over {TRAIN_LOOP_EVAL_N} image, camera sweep "
          f"{TRAIN_LOOP_SWEEP}",
          rays_per_step=run_cfg.diner.rays_per_step * TRAIN_LOOP_BATCH,
          cli_s=t_cli, cli_first_step_s=cli_steps[0],
          s_per_step=statistics.median(cli_steps[1:]),
          s_per_step_all=[1 / r["steps_per_sec"] for r in train_rows],
          step_alone_s=[c[2] for c in calls["train"]],
-         validation_image_s=[c[2] for c in calls["eval"][:2]],
+         validation_image_s=[c[2] for c in calls["eval"]
+                             [:TRAIN_LOOP_EVAL_N]],
          fit_resume_s=t_fit, peak_mem_bytes=peak,
-         cli_peak_mem_bytes=cli_peak,
-         idle_share_fit=1 - busy_ms / (t_fit * 1e3), kernel_ms_fit=busy_ms,
+         cli_peak_mem_bytes=cli_peak, profiled_steps_s=t_prof,
+         idle_share_steps=1 - busy_ms / (t_prof * 1e3),
+         kernel_ms_steps=busy_ms,
          launches_composite_fwd=launches[0],
          launches_composite_bwd=launches[1],
          launches_row_gather=launches[2],
@@ -1401,7 +1620,8 @@ def phase_train_loop():
          losses=[{k: r[k] for k in r if k not in ("step", "steps_per_sec")}
                  for r in train_rows],
          val_scores={k: scores[k] for k in keys},
-         sweep_image_s=[c[2] for c in calls["eval"][2:]], cam_sweep=sweep,
+         sweep_image_s=[c[2] for c in calls["eval"][TRAIN_LOOP_EVAL_N:]],
+         cam_sweep=sweep,
          card_memory_bytes=total_mem, memory_limit_bytes=mem_limit,
          peak_over_40gb_target=max(peak, cli_peak) > 40e9)
     check(max(peak, cli_peak) <= mem_limit,
@@ -1431,7 +1651,7 @@ def sweep_files(sweep_dir):
 
 
 PREDICT_DIR = OUT_DIR / "predict"
-PREDICT_N = 3  # validation images per prediction folder: 2 warm ones
+PREDICT_N = 2  # validation images per prediction folder: 1 warm one
 
 
 def sphere_data(n_train, n_val, batch_size):
@@ -3989,11 +4209,12 @@ PIPELINE_INIT_TAG = "pipeline_init_launches="
 # ``python -m diner_tpu_torch.pipeline``'s full recipe with only its depth
 # cut: 3 MVS steps (of 30), 25 DINER steps (of 2000: the template logs a row
 # every 25), one validation hook at the last step (2 views, one sweep of 2
-# frames: of 100 views and 4 sweeps of 30), 2 images scored (of 3)
+# frames: of 100 views and 4 sweeps of 30), 1 image scored (of 3; 2 until
+# PR 16)
 PIPELINE_MVS_STEPS = 3
 PIPELINE_DINER_STEPS = 25
 PIPELINE_VAL_VIEWS, PIPELINE_SWEEPS, PIPELINE_SWEEP_FRAMES = 2, 1, 2
-PIPELINE_EVAL_N = 2
+PIPELINE_EVAL_N = 1
 PIPELINE_CUTS = [
     "--mvs-steps", PIPELINE_MVS_STEPS, "--diner-steps", PIPELINE_DINER_STEPS,
     "--val-interval", PIPELINE_DINER_STEPS, "--val-views",
@@ -5363,6 +5584,7 @@ def main():
     phase_small_reference()
     train_l, state, vgg, b = phase_train_path()
     phase_train_grad_f32(state, vgg, b)
+    parallel_l, parallel_cli_l = phase_parallel_train(state, vgg, b)
     del state, vgg, b
     torch.cuda.empty_cache()
     train_pruned_l = phase_train_path(pruned=True)[0]
@@ -5388,6 +5610,8 @@ def main():
     paths = {"eval_render": eval_l, "eval_render_pairs": pairs_l,
              "eval_render_pruned": pruned_l, "train_steps": train_l,
              "train_steps_pruned": train_pruned_l,
+             "parallel_train": parallel_l,
+             "train_cli_mesh": parallel_cli_l,
              "predict": predict_l["nsamples64"],
              "predict_nsamples32": predict_l["nsamples32"],
              **novel_l, **kpn_l, **prep_l, **mvs_l,

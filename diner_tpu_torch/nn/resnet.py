@@ -58,6 +58,9 @@ class BatchNorm(nn.Module):
     the output cast to the compute dtype."""
 
     momentum = 0.9
+    # a process group whose ranks' batches the statistics span
+    # (parallel/sharding.py:sync_batch_stats); None: this batch alone
+    group = None
 
     def __init__(self, channels, dtype=torch.float32, eps=1e-5):
         super().__init__()
@@ -80,8 +83,7 @@ class BatchNorm(nn.Module):
         # and flax's running update with the biased batch variance
         x = x.float()
         if train:
-            mean = x.mean(dim=(0, 2, 3), keepdim=True)
-            var = (x - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+            mean, var = self._batch_moments(x)
             if update_stats:
                 m = self.momentum
                 with torch.no_grad():
@@ -94,6 +96,24 @@ class BatchNorm(nn.Module):
             var = self.running_var.view(1, -1, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight.view(1, -1, 1, 1)
         return ((x - mean) * mul + self.bias.view(1, -1, 1, 1)).to(self.dtype)
+
+    def _batch_moments(self, x):
+        """Per-channel mean and biased variance, both passes summed over
+        ``group``'s ranks when there is one (an autograd all-reduce, so
+        every rank's backward sees the statistics' dependence on every
+        rank's batch)."""
+        dims = (0, 2, 3)
+        if self.group is None:
+            mean = x.mean(dim=dims, keepdim=True)
+            return mean, (x - mean).square().mean(dim=dims, keepdim=True)
+        import torch.distributed as dist
+
+        from diner_tpu_torch.parallel.sharding import all_reduce_sum
+        n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+        mean = all_reduce_sum(x.sum(dim=dims, keepdim=True), self.group) / n
+        var = all_reduce_sum((x - mean).square().sum(dim=dims, keepdim=True),
+                             self.group) / n
+        return mean, var
 
 
 class BasicBlock(nn.Module):

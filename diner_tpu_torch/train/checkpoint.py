@@ -10,8 +10,11 @@ parameters and BN running statistics (``state_dict``), the Adam state
 never sees a half-written file. A train state with a learning-rate
 ``scheduler`` (TransMVSNet's, ``mvs/train.py``) saves its state too.
 Restoring puts every tensor back where
-the train step keeps it (the model's device). Reading an orbax checkpoint
-written by the JAX package is not supported (orbax imports JAX).
+the train step keeps it (the model's device). An orbax checkpoint written
+by the JAX package becomes one of these in two steps, so that the port
+never imports JAX: ``export_jax_checkpoint.py`` (where JAX is) writes its
+leaves to an ``.npz``, and ``python -m diner_tpu_torch.train.import_jax``
+builds the train state from it (``train/import_jax.py``).
 """
 
 from __future__ import annotations

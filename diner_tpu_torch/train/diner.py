@@ -194,15 +194,16 @@ def rgb_losses(cfg: DinerConfig, rgb, gt, vgg=None,
                vgg_dtype=torch.float32):
     """MSE, and with ``w_vgg`` the VGG19 and antibias losses on the
     ``vgg_spatch``² patch (``diner.py:177-203``) → (total, metrics);
-    ``vgg_dtype`` is the VGG convolutions' compute dtype."""
+    ``vgg_dtype`` is the VGG convolutions' compute dtype. The rays are the
+    patch's pixels row by row; the patch is as many rows as they fill."""
     SB = rgb.shape[0]
     loss_rgb = mse_loss(rgb, gt)
     total = loss_rgb
     metrics = {"rgb_fine": loss_rgb}
     if cfg.w_vgg > 0:
         s = cfg.vgg_spatch
-        pred_img = rgb.reshape(SB, s, s, 3)
-        gt_img = gt.reshape(SB, s, s, 3)
+        pred_img = rgb.reshape(SB, -1, s, 3)
+        gt_img = gt.reshape(SB, -1, s, 3)
         loss_vgg = vgg_loss(vgg, pred_img, gt_img, dtype=vgg_dtype)
         total = total + cfg.w_vgg * loss_vgg
         metrics["vgg_fine"] = loss_vgg

@@ -12,8 +12,14 @@ in the run directory.
 Per-step randomness (pixels and the sampler's noise) comes from a
 ``torch.Generator`` on the model's device seeded from the count of steps
 taken, as the JAX loop seeds its key from the step (``loop.py:180``); the
-noise itself differs from JAX's, whose generator is another. Not yet
-ported: the device mesh (``parallel/``).
+noise itself differs from JAX's, whose generator is another.
+
+With a ``mesh`` (``parallel/``, ``diner_tpu/train/loop.py:96,152-159``)
+every rank loads the same global batches (the loader's seeded shuffle) and
+runs the mesh train and eval steps, which keep each rank's shard and draw
+the same global noise on every rank; only rank 0 writes the run directory
+(checkpoints, logs, snapshots, validation images and scores), and the
+other ranks wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from diner_tpu_torch.train import checkpoint as ckpt_lib
 from diner_tpu_torch.train.config import TrainRunConfig
 from diner_tpu_torch.train.diner import (TrainStep, create_model,
                                          make_eval_step, make_train_step)
+from diner_tpu_torch.utils.meters import synchronize
 from diner_tpu_torch.utils.pretrained import load_vgg19
 from diner_tpu_torch.utils.visual import colorize, save_image, save_video
 
@@ -112,16 +119,21 @@ def arrays_of(batch) -> dict:
 
 class Trainer:
     """Trains the DINER model of a ``TrainRunConfig`` on ``device`` (``cuda``
-    unless the caller asks for the CPU)."""
+    unless the caller asks for the CPU; with a ``mesh``, this rank's device
+    from ``parallel.initialize``)."""
 
-    def __init__(self, run_cfg: TrainRunConfig, num_workers: int = 2,
-                 device=None):
+    def __init__(self, run_cfg: TrainRunConfig, mesh=None,
+                 num_workers: int = 2, device=None):
         self.cfg = run_cfg
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.device = resolve_device(device)
         self.num_workers = num_workers
         self.run_dir = run_cfg.run_dir
-        os.makedirs(self.run_dir, exist_ok=True)
-        self.logger = MetricLogger(self.run_dir / "logs")
+        self.logger = None
+        if self.is_main:
+            os.makedirs(self.run_dir, exist_ok=True)
+            self.logger = MetricLogger(self.run_dir / "logs")
 
         self.train_set = run_cfg.build_dataset("train")
         self.val_set = run_cfg.build_dataset("val")
@@ -132,9 +144,10 @@ class Trainer:
 
         # snapshot the config and code for reproducibility (the reference
         # copies the full source tree into the run dir, general.py:21-27)
-        with open(self.run_dir / "config_snapshot.json", "w") as f:
-            json.dump(run_cfg.raw, f, indent=2, default=str)
-        self._snapshot_code()
+        if self.is_main:
+            with open(self.run_dir / "config_snapshot.json", "w") as f:
+                json.dump(run_cfg.raw, f, indent=2, default=str)
+            self._snapshot_code()
 
     def _snapshot_code(self):
         import diner_tpu_torch
@@ -155,9 +168,9 @@ class Trainer:
         """The model (seed 0, dead-density reroll, the ImageNet ResNet34
         where converted), VGG19 for the perceptual loss (the converted
         ImageNet weights where present, else seed 0, as
-        ``diner_tpu/train/loop.py:133-140``) and the train step, restored
-        from ``ckpt_path`` or the run's latest checkpoint when there is
-        one."""
+        ``diner_tpu/train/loop.py:133-140``) and the train step (the mesh
+        step, on rank 0's weights, with a mesh), restored from ``ckpt_path``
+        or the run's latest checkpoint when there is one."""
         dcfg = self.cfg.diner
         vgg = None
         if dcfg.w_vgg > 0:
@@ -165,7 +178,13 @@ class Trainer:
             if vgg is None:
                 vgg = init_vgg19(0, device=self.device)
         model = create_model(dcfg, example_batch, seed=0, device=self.device)
-        train_step = make_train_step(model, dcfg, vgg)
+        if self.mesh is None:
+            train_step = make_train_step(model, dcfg, vgg)
+        else:
+            from diner_tpu_torch.parallel import (make_parallel_train_step,
+                                                  replicate)
+            train_step = make_parallel_train_step(
+                replicate(model, self.mesh), dcfg, self.mesh, vgg)
         if self.cfg.ckpt_path:
             ckpt_lib.restore_checkpoint(self.cfg.ckpt_path, train_step)
         elif (latest := ckpt_lib.latest_checkpoint(
@@ -184,7 +203,12 @@ class Trainer:
             self.train_set,
             batch_size=self.train_loader.batch_size, num_workers=0)))
         train_step = self._init_state(arrays_of(example))
-        eval_step = make_eval_step(train_step.model, cfg.diner)
+        if self.mesh is None:
+            eval_step = make_eval_step(train_step.model, cfg.diner)
+        else:
+            from diner_tpu_torch.parallel import make_parallel_eval_step
+            eval_step = make_parallel_eval_step(train_step.model, cfg.diner,
+                                                self.mesh)
 
         limit = max_steps if max_steps is not None else cfg.max_steps
         gen = torch.Generator(device=self.device)
@@ -211,7 +235,7 @@ class Trainer:
                     running["steps_per_sec"] = (
                         cfg.log_every_n_steps / dt if dt > 0 else 0.0)
                     t_last = time.time()
-                    self.logger.log(running, step)
+                    self._log(running, step)
                     running = {}
                 if cfg.ckpt_every_n_steps > 0 and \
                         step % cfg.ckpt_every_n_steps == 0:
@@ -224,8 +248,14 @@ class Trainer:
         return train_step
 
     def _save(self, train_step: TrainStep):
-        ckpt_lib.save_checkpoint(self.run_dir / "checkpoints", train_step,
-                                 config_json=self.cfg.raw)
+        if self.is_main:
+            ckpt_lib.save_checkpoint(self.run_dir / "checkpoints",
+                                     train_step, config_json=self.cfg.raw)
+        synchronize()
+
+    def _log(self, metrics: Dict[str, float], step: int):
+        if self.is_main:
+            self.logger.log(metrics, step)
 
     # -------------------------------------------------------- validation
 
@@ -233,24 +263,26 @@ class Trainer:
         """Reference on_validation_epoch_end: checkpoint, prediction folder,
         evaluation suite, logged scores and camera sweeps
         (``src/models/diner.py:310-330``); a dataset without a sweep is
-        skipped, as the JAX loop skips it."""
+        skipped, as the JAX loop skips it. With a mesh every rank renders
+        and rank 0 writes and scores (the others return None)."""
         step = train_step.step
         eval_dir = self.run_dir / f"eval_{step:06d}"
-        os.makedirs(eval_dir, exist_ok=True)
         self._save(train_step)
 
         visdir = eval_dir / "visualizations"
         self.create_prediction_folder(eval_step, visdir, generator)
-        scores = eval_suite.evaluate_folder(visdir, eval_dir,
-                                            device=self.device)
-        self.logger.log({f"valscores_{k}": v for k, v in scores.items()},
-                        step)
+        scores = None
+        if self.is_main:
+            scores = eval_suite.evaluate_folder(visdir, eval_dir,
+                                                device=self.device)
+            self._log({f"valscores_{k}": v for k, v in scores.items()}, step)
 
         try:
             self.create_cam_sweep(eval_step, eval_dir / "cam_sweeps",
                                   generator, **self.cfg.cam_sweep_settings)
         except (AttributeError, NotImplementedError):
             pass  # dataset without sweep support
+        synchronize()
         return scores
 
     def create_prediction_folder(self, eval_step, outdir, generator,
@@ -259,8 +291,9 @@ class Trainer:
         ``n_samples_score_eval``) images of ``dataset`` (default the
         validation set) chosen by ``select_eval_indices``, and write each
         one's prediction, colourised depth, source views and ground truth
-        under the suite's suffixes."""
-        os.makedirs(outdir, exist_ok=True)
+        under the suite's suffixes (rank 0 writes)."""
+        if self.is_main:
+            os.makedirs(outdir, exist_ok=True)
         dataset = dataset or self.val_set
         n = n_samples if n_samples is not None else \
             self.cfg.n_samples_score_eval
@@ -270,6 +303,8 @@ class Trainer:
                             sample_indices=idcs)
         for batch in loader:
             rgb, depth = eval_step(arrays_of(batch), generator=generator)
+            if not self.is_main:
+                continue
             rgb = rgb.float().cpu().numpy()
             depth = depth.float().cpu().numpy()
             src = np.asarray(batch["src_rgbs"])  # (B, NV, H, W, 3)
@@ -293,8 +328,9 @@ class Trainer:
         and writes ``<name>.mp4`` (a GIF where no mp4 writer exists) of
         [rgb; colourised depth] frames played forward then back
         (2·nframes − 1), and ``<name>-ref_imgs.jpg`` of the source
-        views."""
-        os.makedirs(outdir, exist_ok=True)
+        views (rank 0 writes)."""
+        if self.is_main:
+            os.makedirs(outdir, exist_ok=True)
         dataset = self.val_set
         sweep_idcs = np.linspace(0, len(dataset) - 1,
                                  n_cam_sweeps).astype(int)
@@ -310,6 +346,8 @@ class Trainer:
                 frames.append(np.concatenate(
                     [rgb[0].float().cpu().numpy(),
                      colorize(depth[0].float().cpu().numpy())], axis=0))
+            if not self.is_main:
+                continue
             frames = np.stack(frames)
             frames = frames[list(range(nframes))
                             + list(range(nframes - 1, 0, -1))]

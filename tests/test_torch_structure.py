@@ -55,7 +55,8 @@ def test_import_pulls_in_no_jax():
               "preprocessing.facescape_pipeline", "preprocess_facescape",
               "preprocess_multiface", "geometry.cam_paths", "data.multiface",
               "data.debug", "mvs.multiface_dataset", "pipeline",
-              "fusion.__main__"):
+              "fusion.__main__", "parallel", "parallel.distributed",
+              "parallel.sharding", "parallel.train", "train.import_jax"):
         assert f"diner_tpu_torch.{m}" in modules, m
     code = ("import importlib, sys\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -91,6 +92,43 @@ def test_no_jax_import_in_port_sources():
     assert _forbidden_imports("from diner_tpu.ops import composite\n"
                               "import jax.numpy\nimport torch") == [
         "diner_tpu.ops", "jax.numpy"]
+
+
+def test_export_script_imports_neither_torch_nor_a_package():
+    """``export_jax_checkpoint.py`` is the JAX side's half of the orbax
+    import: it runs where JAX is, and needs neither torch nor either
+    package (orbax and numpy only)."""
+    source = (ROOT / "export_jax_checkpoint.py").read_text()
+    imported = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            imported += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported.append((node.module or "").split(".")[0])
+    assert "orbax" in imported and "numpy" in imported
+    for bad in ("torch", "diner_tpu", "diner_tpu_torch"):
+        assert bad not in imported, bad
+
+
+def test_mesh_and_import_entry_points_default_to_cuda(monkeypatch,
+                                                      tmp_path):
+    """``--mesh``, ``parallel.initialize`` and the orbax importer run on the
+    card unless the CPU is asked for, and raise without a GPU before a
+    process group is joined or a file is read."""
+    from diner_tpu_torch.parallel import initialize
+    from diner_tpu_torch.train.__main__ import main as train_main
+    from diner_tpu_torch.train.import_jax import main as import_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main([str(ROOT / "configs" / "train_synthetic.yaml"),
+                    "--mesh"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize()
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        import_main([str(tmp_path / "absent.npz"),
+                     str(ROOT / "configs" / "train_synthetic.yaml"), "DINER",
+                     str(tmp_path / "out")])
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
