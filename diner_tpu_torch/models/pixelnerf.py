@@ -91,19 +91,22 @@ class PixelNeRF(nn.Module):
                 m.reset_parameters(generator)
 
     def encode(self, images, depths, depths_std, extrinsics, intrinsics,
-               train: bool = True, update_stats: bool = False
-               ) -> SceneContext:
+               train: bool = True, update_stats: bool = False,
+               stats_mean=None) -> SceneContext:
         """images (SB, NV, H, W, 3) in [0, 1]; depths / depths_std
         (SB, NV, H, W, 1); extrinsics (SB, NV, 4, 4); intrinsics
         (SB, NV, 3, 3). ``train`` normalizes with batch statistics;
-        ``update_stats`` also moves the running ones (the train step)."""
+        ``update_stats`` also moves the running ones (the train step);
+        ``stats_mean`` takes them over more than this batch
+        (``nn/resnet.py``)."""
         SB, NV, H, W, _ = images.shape
         imgs = normalize_imagenet(images)
         normals = depth_to_normal(depths.reshape(SB * NV, H, W),
                                   intrinsics.reshape(SB * NV, 3, 3)
                                   ).reshape(SB, NV, H, W, 3)
         latent = self.encoder(imgs.reshape(SB * NV, H, W, 3), train=train,
-                              update_stats=update_stats)
+                              update_stats=update_stats,
+                              stats_mean=stats_mean)
         latent = latent.reshape((SB, NV) + tuple(latent.shape[1:]))
         intrinsics = intrinsics.to(imgs.dtype)
         return SceneContext(

@@ -11,7 +11,10 @@ BatchNorm normalizes in f32 and casts its output back to the compute dtype
 after the first BN. ``train=True`` normalizes with batch statistics and
 updates the running ones only when ``update_stats=True`` (the train step,
 as flax's ``mutable=["batch_stats"]``); ``train=False`` uses the running
-ones.
+ones. ``stats_mean``, where given, takes the batch statistics over more
+than this batch: a callable (this batch's per-channel sum, its count per
+channel) → the mean over every batch it spans (``parallel/``'s mesh steps
+pass one that sums over the ranks of the data axis).
 Parameter names follow the flax tree, so ``utils/convert.py`` maps it 1:1.
 """
 
@@ -53,14 +56,25 @@ class Conv2d(nn.Module):
                         stride=self.stride, padding=self.padding)
 
 
+def batch_moments(x, stats_mean=None):
+    """Per-channel mean and biased variance of (N, C, H, W) ``x``, in two
+    passes; with ``stats_mean`` (see the module docstring) both passes
+    reach over every batch it spans."""
+    dims = (0, 2, 3)
+    if stats_mean is None:
+        mean = x.mean(dim=dims, keepdim=True)
+        return mean, (x - mean).square().mean(dim=dims, keepdim=True)
+    n = x.numel() // x.shape[1]
+    mean = stats_mean(x.sum(dim=dims, keepdim=True), n)
+    return mean, stats_mean((x - mean).square().sum(dim=dims, keepdim=True),
+                            n)
+
+
 class BatchNorm(nn.Module):
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` with
     the output cast to the compute dtype."""
 
     momentum = 0.9
-    # a process group whose ranks' batches the statistics span
-    # (parallel/sharding.py:sync_batch_stats); None: this batch alone
-    group = None
 
     def __init__(self, channels, dtype=torch.float32, eps=1e-5):
         super().__init__()
@@ -77,13 +91,14 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x, train: bool, update_stats: bool = False):
+    def forward(self, x, train: bool, update_stats: bool = False,
+                stats_mean=None):
         # written out rather than F.batch_norm: batch statistics in two
         # passes, whose sum order does not depend on the CPU thread split,
         # and flax's running update with the biased batch variance
         x = x.float()
         if train:
-            mean, var = self._batch_moments(x)
+            mean, var = batch_moments(x, stats_mean)
             if update_stats:
                 m = self.momentum
                 with torch.no_grad():
@@ -96,24 +111,6 @@ class BatchNorm(nn.Module):
             var = self.running_var.view(1, -1, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight.view(1, -1, 1, 1)
         return ((x - mean) * mul + self.bias.view(1, -1, 1, 1)).to(self.dtype)
-
-    def _batch_moments(self, x):
-        """Per-channel mean and biased variance, both passes summed over
-        ``group``'s ranks when there is one (an autograd all-reduce, so
-        every rank's backward sees the statistics' dependence on every
-        rank's batch)."""
-        dims = (0, 2, 3)
-        if self.group is None:
-            mean = x.mean(dim=dims, keepdim=True)
-            return mean, (x - mean).square().mean(dim=dims, keepdim=True)
-        import torch.distributed as dist
-
-        from diner_tpu_torch.parallel.sharding import all_reduce_sum
-        n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
-        mean = all_reduce_sum(x.sum(dim=dims, keepdim=True), self.group) / n
-        var = all_reduce_sum((x - mean).square().sum(dim=dims, keepdim=True),
-                             self.group) / n
-        return mean, var
 
 
 class BasicBlock(nn.Module):
@@ -130,12 +127,13 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv2d(cin, width, 1, stride, 0, dtype)
             self.downsample_bn = BatchNorm(width, dtype)
 
-    def forward(self, x, train: bool, update_stats: bool = False):
-        y = torch.relu(self.bn1(self.conv1(x), train, update_stats))
-        y = self.bn2(self.conv2(y), train, update_stats)
+    def forward(self, x, train: bool, update_stats: bool = False,
+                stats_mean=None):
+        bn = (train, update_stats, stats_mean)
+        y = torch.relu(self.bn1(self.conv1(x), *bn))
+        y = self.bn2(self.conv2(y), *bn)
         if self.has_downsample:
-            x = self.downsample_bn(self.downsample_conv(x), train,
-                                   update_stats)
+            x = self.downsample_bn(self.downsample_conv(x), *bn)
         return torch.relu(x + y)
 
 
@@ -161,14 +159,16 @@ class ResNetEncoder(nn.Module):
                 cin = STAGE_WIDTHS[stage]
             self.stages.append(names)
 
-    def forward(self, x, train: bool = True, update_stats: bool = False):
+    def forward(self, x, train: bool = True, update_stats: bool = False,
+                stats_mean=None):
+        bn = (train, update_stats, stats_mean)
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels-last strides
-        x = torch.relu(self.bn1(self.conv1(x), train, update_stats))
+        x = torch.relu(self.bn1(self.conv1(x), *bn))
         latents = [x]
         for stage, names in enumerate(self.stages):
             if stage == 0 and self.use_first_pool:
                 x = F.max_pool2d(x, 3, 2, 1)  # pads with −inf, as flax
             for name in names:
-                x = getattr(self, name)(x, train, update_stats)
+                x = getattr(self, name)(x, *bn)
             latents.append(x)
         return [t.permute(0, 2, 3, 1) for t in latents]

@@ -82,7 +82,8 @@ class SpatialEncoder(nn.Module):
         self.resnet = ResNetEncoder(in_ch, cfg.backbone, cfg.num_layers,
                                     cfg.use_first_pool, dtype)
 
-    def forward(self, imgs, train: bool = True, update_stats: bool = False):
+    def forward(self, imgs, train: bool = True, update_stats: bool = False,
+                stats_mean=None):
         cfg = self.cfg
         N, H, W, _ = imgs.shape
         p = cfg.image_padding
@@ -95,7 +96,7 @@ class SpatialEncoder(nn.Module):
             x = torch.cat([x, stamp.permute(2, 0, 1)[None].expand(
                 N, -1, -1, -1)], dim=1)
         latents = self.resnet(x.permute(0, 2, 3, 1).contiguous(), train,
-                              update_stats)
+                              update_stats, stats_mean)
         out_h, out_w = latents[0].shape[1:3]
         return torch.cat([resize_bilinear_align_corners(t, out_h, out_w)
                           for t in latents], dim=-1)

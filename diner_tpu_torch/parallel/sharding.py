@@ -10,7 +10,8 @@ mesh is the ranks laid out row-major as (data, rays): rank
 runs over the ranks that share a coordinate:
 
 - ``data_group``: the ranks holding this rank's rays of the other scene
-  slices (the encoder's batch statistics are summed over it);
+  slices (the encoder's batch statistics are summed over it,
+  :func:`batch_mean`);
 - ``rays_group``: the ranks holding the other rays of this rank's scenes
   (the VGG patch is gathered over it);
 - ``world_group``: every rank (gradients and metrics).
@@ -19,12 +20,16 @@ Every rank holds the same global batch, as ``make_global_array`` assumes
 there (``distributed.py:83-98``); :func:`shard_batch` keeps this rank's
 scenes and :func:`ray_slice` this rank's block of a (scenes, rays, …)
 array, the counterpart of ``constrain_rays``.
+
+The collectives run on every mesh, a mesh of one rank too, where each is
+the identity: the world of one on a card goes through the same code as a
+mesh of many.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -187,28 +192,65 @@ class _GatherRays(torch.autograd.Function):
 def gather_rays(x, mesh: Mesh):
     """(scenes, rays / mesh.rays, …) on each rank of a ray group → the
     group's whole (scenes, rays, …), differentiable."""
-    if mesh.rays == 1:
-        return x
     return _GatherRays.apply(x, mesh.rays_group, mesh.rays, mesh.ray_index)
 
 
 def gather_scenes(x, mesh: Mesh):
     """(scenes / mesh.data, …) on each rank of a data group → the whole
     (scenes, …); not differentiable."""
-    if mesh.data == 1:
-        return x
     parts = [torch.empty_like(x) for _ in range(mesh.data)]
     dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
     return torch.cat(parts, dim=0)
 
 
-def sync_batch_stats(model: torch.nn.Module, mesh: Optional[Mesh]):
-    """Make the train-mode BatchNorms of ``model`` take their statistics
-    over the scenes of every rank of the data axis, as the JAX step takes
-    them over its global batch; ``mesh=None`` (or one data slice) makes
-    them local again."""
-    from diner_tpu_torch.nn.resnet import BatchNorm
-    group = mesh.data_group if mesh is not None and mesh.data > 1 else None
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.group = group
+def batch_mean(mesh: Mesh):
+    """The encoder's BatchNorm hook (``stats_mean``, ``nn/resnet.py``) for
+    a mesh step: (this rank's per-channel sum, its count) → the mean over
+    the batches of every rank of the data axis, as the JAX step takes it
+    over its global batch. The sum is an autograd all-reduce, so every
+    rank's backward sees the statistics' dependence on every rank's batch;
+    every rank holds as many scenes."""
+    def mean(local_sum, count):
+        return all_reduce_sum(local_sum, mesh.data_group) / (count * mesh.data)
+    return mean
+
+
+class RaySplit(NamedTuple):
+    """The chunked renderer's split of each chunk over a mesh
+    (``split``, ``renderer.render_rays_chunked``): :meth:`local` keeps
+    this rank's block of a global (n_scenes, rays, …) array, :meth:`whole`
+    gathers every rank's block back (not differentiable)."""
+
+    mesh: Mesh
+    n_scenes: int
+
+    def local(self, x):
+        return ray_slice(x, self.mesh)
+
+    def whole(self, x):
+        x = gather_rays(x, self.mesh)
+        if self.n_scenes % self.mesh.data == 0:  # the scenes were split
+            x = gather_scenes(x, self.mesh)
+        return x
+
+
+def all_reduce_gradients(model: torch.nn.Module, mesh: Mesh):
+    """Sum every parameter's gradient over the mesh's ranks through one
+    flat buffer, which the gradients then view; a parameter without one
+    has zeros there (optax steps every parameter)."""
+    params = list(model.parameters())
+    flat = torch.cat([torch.zeros(p.numel(), device=p.device,
+                                  dtype=p.dtype) if p.grad is None
+                      else p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=mesh.world_group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
+def reduce_metrics(metrics: dict, mesh: Mesh) -> dict:
+    """Each rank's metric shares summed over the mesh: the global values,
+    as 0-d tensors."""
+    keys = sorted(metrics)
+    vec = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(vec, group=mesh.world_group)
+    return dict(zip(keys, vec.unbind()))

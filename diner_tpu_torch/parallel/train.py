@@ -2,22 +2,23 @@
 
 Port of ``diner_tpu/parallel/train.py``. The JAX package jits its
 one-device step over the mesh, and XLA computes the global step from the
-global arrays. Here each rank runs its block of that step, and the
-collectives make the sum over ranks the global step:
+global arrays. Here each rank runs its block of the one-process step
+(``train/diner.py``'s ``compute_losses`` and ``make_eval_step`` with a
+``mesh``), and the collectives make the sum over ranks the global step:
 
 - every rank draws the global pixel indices and the renderer's global
   noise from the same generator, in the one-process step's order, and
   keeps its block (``sharding.ray_slice``);
 - the encoder's train-mode BatchNorms take their statistics over the data
-  axis (``sharding.sync_batch_stats``), as JAX's ``mutable=["batch_stats"]``
+  axis (``sharding.batch_mean``), as JAX's ``mutable=["batch_stats"]``
   does over its global batch, so the running statistics move alike on
   every rank;
 - with the VGG loss on, the rendered patch is gathered over the rays axis
   (differentiably) before the losses, which then see the whole patch;
-- each rank's losses are its share of the global ones: divided by the
-  number of ranks, so their sum over ranks is the one-process loss (every
-  rank of a ray group computes the same patch terms, every data slice
-  holds as many scenes);
+- each rank's loss is its share of the global one: divided by the number
+  of ranks, so its sum over ranks is the one-process loss (every rank of
+  a ray group computes the same patch terms, every data slice holds as
+  many scenes);
 - the gradients are summed over every rank through one flat buffer, and
   every rank steps Adam, so the parameters stay identical;
 - the metrics are summed over every rank: the global values.
@@ -28,68 +29,14 @@ seeded shuffle) and keep this rank's scenes (``sharding.shard_batch``).
 
 from __future__ import annotations
 
-import torch
-import torch.distributed as dist
+import functools
 
-from diner_tpu_torch.parallel.sharding import (Mesh, gather_rays,
-                                               gather_scenes, ray_slice,
-                                               shard_batch, sync_batch_stats)
-from diner_tpu_torch.renderer import draw_noise, render_rays
-from diner_tpu_torch.train.diner import (SRC_KEYS, DinerConfig, TrainStep,
-                                         batch_to_device, noise_to_device,
-                                         rgb_losses, select_pixels,
-                                         select_rays, target_rays)
+from diner_tpu_torch.parallel.sharding import Mesh, all_reduce_gradients
+from diner_tpu_torch.train.diner import (DinerConfig, TrainStep,
+                                         compute_losses, make_eval_step)
 
-__all__ = ["compute_mesh_losses", "ParallelTrainStep",
-           "make_parallel_train_step", "make_parallel_eval_step"]
-
-
-def compute_mesh_losses(model, cfg: DinerConfig, b, mesh: Mesh, vgg=None,
-                        generator=None, noise=None, pix_idcs=None,
-                        update_stats: bool = False):
-    """This rank's share of the one-process step's forward and losses
-    (``train/diner.py:compute_losses``) on the global batch tensors ``b``
-    → (total, metrics). ``pix_idcs`` (SB, rays_per_step) and ``noise``
-    are global; drawn from ``generator`` when not given, in that order."""
-    local = shard_batch(b, mesh)
-    ctx = model.encode(*(local[k] for k in SRC_KEYS), train=True,
-                       update_stats=update_stats)
-    if pix_idcs is None:
-        pix_idcs = select_pixels(cfg, b, generator)
-    rays, gt = select_rays(cfg, local, pix_idcs=ray_slice(pix_idcs, mesh))
-    if noise is None:
-        noise = draw_noise(cfg.renderer, pix_idcs.shape[0], pix_idcs.shape[1],
-                           generator, rays.device, rays.dtype)
-    noise = tuple(None if t is None else ray_slice(t, mesh) for t in noise)
-    out = render_rays(model.field, ctx, rays, cfg.renderer, noise=noise)
-    rgb = out.rgb
-    if cfg.w_vgg > 0:  # the patch terms convolve the whole patch
-        rgb, gt = gather_rays(rgb, mesh), gather_rays(gt, mesh)
-    total, metrics = rgb_losses(cfg, rgb, gt, vgg, vgg_dtype=model.dtype)
-    share = 1.0 / mesh.size
-    return total * share, {k: v * share for k, v in metrics.items()}
-
-
-def all_reduce_gradients(model: torch.nn.Module, mesh: Mesh):
-    """Sum every parameter's gradient over the mesh's ranks through one
-    flat buffer, which the gradients then view; a parameter without one
-    has zeros there (optax steps every parameter)."""
-    params = list(model.parameters())
-    flat = torch.cat([torch.zeros(p.numel(), device=p.device,
-                                  dtype=p.dtype) if p.grad is None
-                      else p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat, group=mesh.world_group)
-    for p, g in zip(params, flat.split([p.numel() for p in params])):
-        p.grad = g.view_as(p)
-
-
-def reduce_metrics(metrics: dict, mesh: Mesh) -> dict:
-    """Each rank's metric shares summed over the mesh: the global values,
-    as 0-d tensors."""
-    keys = sorted(metrics)
-    vec = torch.stack([metrics[k].detach().float() for k in keys])
-    dist.all_reduce(vec, group=mesh.world_group)
-    return dict(zip(keys, vec.unbind()))
+__all__ = ["ParallelTrainStep", "make_parallel_train_step",
+           "make_parallel_eval_step"]
 
 
 class ParallelTrainStep(TrainStep):
@@ -105,23 +52,10 @@ class ParallelTrainStep(TrainStep):
                              f"over {mesh.rays} ranks")
         super().__init__(model, cfg, vgg)
         self.mesh = mesh
-        sync_batch_stats(model, mesh)
+        self.loss_fn = functools.partial(compute_losses, mesh=mesh)
 
-    def __call__(self, batch, generator=None, noise=None, pix_idcs=None):
-        dev = next(self.model.parameters()).device
-        b = batch_to_device(batch, dev)
-        noise = noise_to_device(noise, dev)
-        if pix_idcs is not None:
-            pix_idcs = torch.as_tensor(pix_idcs).to(dev)
-        self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = compute_mesh_losses(
-            self.model, self.cfg, b, self.mesh, self.vgg, generator, noise,
-            pix_idcs, update_stats=True)
-        total.backward()
+    def complete_gradients(self):
         all_reduce_gradients(self.model, self.mesh)
-        self.optimizer.step()
-        self.step += 1
-        return reduce_metrics(metrics, self.mesh)
 
 
 def make_parallel_train_step(model, cfg: DinerConfig, mesh: Mesh,
@@ -131,74 +65,11 @@ def make_parallel_train_step(model, cfg: DinerConfig, mesh: Mesh,
     return ParallelTrainStep(model, cfg, mesh, vgg)
 
 
-def make_parallel_eval_step(model, cfg: DinerConfig, mesh: Mesh,
-                            use_running_stats: bool = False):
-    """Full-image renderer over ``mesh``: ``(batch, generator=None,
-    noise=None) → (rgb (SB, H, W, 3), depth (SB, H, W))``, the whole image
-    on every rank, as ``train/diner.py:make_eval_step`` renders it.
-
-    Scenes split over the data axis where they divide. Each chunk of
-    ``ray_chunk`` rays (``render_rays_chunked``'s chunks) splits over the
-    rays axis, so the noise, whole-image arrays or drawn from ``generator``
-    chunk by chunk as the one-process step draws it, reaches every ray
-    as there."""
-    rc = cfg.renderer
-    sync_batch_stats(model, mesh)
-
-    @torch.no_grad()
-    def eval_step(batch, generator=None, noise=None):
-        dev = next(model.parameters()).device
-        b = batch_to_device(batch, dev)
-        SB, H, W, _ = b["target_rgb"].shape
-        local = shard_batch(b, mesh)
-        ctx = model.encode(*(local[k] for k in SRC_KEYS),
-                           train=not use_running_stats)
-        rays = target_rays(cfg, local, H, W)
-        NR = H * W
-        chunk = min(rc.ray_chunk, NR)
-        if chunk % mesh.rays:
-            raise ValueError(f"chunks of {chunk} rays do not split over "
-                             f"{mesh.rays} ranks")
-        n_chunks = -(-NR // chunk)
-        part = chunk // mesh.rays
-        lo = mesh.ray_index * part
-
-        def pad(t):  # the edge padding of render_rays_chunked
-            if t is None or t.shape[1] >= n_chunks * chunk:
-                return t
-            extra = t[:, -1:].expand(-1, n_chunks * chunk - t.shape[1],
-                                     *t.shape[2:])
-            return torch.cat([t, extra], dim=1)
-
-        rays = pad(rays)
-        noise = (None if noise is None else
-                 tuple(pad(t) for t in noise_to_device(noise, dev)))
-        rgb, depth = [], []
-        for i in range(n_chunks):
-            if noise is None:
-                nz = draw_noise(rc, SB, chunk, generator, dev, rays.dtype)
-            else:
-                nz = tuple(None if t is None else t[:, i * chunk:
-                                                    (i + 1) * chunk]
-                           for t in noise)
-            nz = tuple(None if t is None else ray_slice(t, mesh) for t in nz)
-            start = i * chunk + lo
-            o = render_rays(model.field, ctx,
-                            rays[:, start:start + part].contiguous(), rc,
-                            noise=nz)
-            rgb.append(o.rgb)
-            depth.append(o.depth[..., None])
-
-        def whole(parts):
-            # (SBl, n_chunks · part, C) per rank → (SB, NR, C), ray order
-            x = gather_rays(torch.cat(parts, dim=1), mesh)
-            x = x.reshape(x.shape[0], mesh.rays, n_chunks, part, -1)
-            x = x.transpose(1, 2).reshape(x.shape[0], n_chunks * chunk, -1)
-            if SB % mesh.data == 0:
-                x = gather_scenes(x, mesh)
-            return x[:, :NR]
-
-        return (whole(rgb).reshape(SB, H, W, 3),
-                whole(depth).reshape(SB, H, W))
-
-    return eval_step
+def make_parallel_eval_step(model, cfg: DinerConfig, mesh: Mesh):
+    """Full-image renderer over ``mesh``, the whole image on every rank:
+    scenes split over the data axis where they divide, and each chunk of
+    ``ray_chunk`` rays over the rays axis, so the noise, whole-image arrays
+    or drawn from ``generator`` chunk by chunk as the one-process step
+    draws it, reaches every ray as there (``train/diner.py:
+    make_eval_step``)."""
+    return make_eval_step(model, cfg, mesh=mesh)

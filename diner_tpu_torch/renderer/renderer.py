@@ -121,14 +121,20 @@ def render_rays(field_fn: FieldFn, ctx: SceneContext, rays,
 
 
 def render_rays_chunked(field_fn: FieldFn, ctx: SceneContext, rays,
-                        cfg: RendererConfig, noise=None,
-                        generator=None) -> RenderOutput:
+                        cfg: RendererConfig, noise=None, generator=None,
+                        split=None) -> RenderOutput:
     """Memory-bounded render of many rays (e.g. a full image).
 
     Pads the ray axis at its edge to a multiple of ``cfg.ray_chunk`` and
     renders one chunk at a time. ``noise`` holds whole-image arrays whose
     ray axis covers at least the NR rays (a shorter tail is edge-padded);
     without it each chunk draws from ``generator``.
+
+    ``split`` shares each chunk out over ranks (``parallel/``'s
+    ``RaySplit``): ``rays`` and ``noise`` are the global arrays and the
+    draws global; ``ctx`` holds this rank's scenes; each rank renders
+    ``split.local`` of the chunk's rays and noise, and ``split.whole``
+    brings every rank's part of the output back.
     """
     SB, NR, _ = rays.shape
     chunk = min(cfg.ray_chunk, NR)
@@ -141,16 +147,21 @@ def render_rays_chunked(field_fn: FieldFn, ctx: SceneContext, rays,
         return F.pad(t.transpose(1, 2), (0, NRp - t.shape[1]),
                      mode="replicate").transpose(1, 2)
 
+    def part(t):
+        return t if t is None or split is None else split.local(t)
+
     rays_p = pad(rays)
     noise_p = None if noise is None else tuple(pad(t) for t in noise)
     rgb, depth = [], []
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
-        chunk_noise = None if noise_p is None else tuple(
-            None if t is None else t[:, sl] for t in noise_p)
-        o = render_rays(field_fn, ctx, rays_p[:, sl].contiguous(), cfg,
-                        noise=chunk_noise, generator=generator)
-        rgb.append(o.rgb)
-        depth.append(o.depth)
+        chunk_noise = (draw_noise(cfg, SB, chunk, generator, rays.device,
+                                  rays.dtype) if noise_p is None else
+                       tuple(None if t is None else t[:, sl]
+                             for t in noise_p))
+        o = render_rays(field_fn, ctx, part(rays_p[:, sl]).contiguous(), cfg,
+                        noise=tuple(part(t) for t in chunk_noise))
+        rgb.append(o.rgb if split is None else split.whole(o.rgb))
+        depth.append(o.depth if split is None else split.whole(o.depth))
     return RenderOutput(rgb=torch.cat(rgb, dim=1)[:, :NR],
                         depth=torch.cat(depth, dim=1)[:, :NR], weights=None)

@@ -27,8 +27,8 @@ from diner_tpu_torch.device import resolve_device
 from diner_tpu_torch.geometry.rays import gen_rays
 from diner_tpu_torch.losses import antibias_loss, mse_loss, vgg_loss
 from diner_tpu_torch.models.pixelnerf import PixelNeRF, PixelNeRFConfig
-from diner_tpu_torch.renderer import (RendererConfig, render_rays,
-                                      render_rays_chunked)
+from diner_tpu_torch.renderer import (RendererConfig, draw_noise,
+                                      render_rays, render_rays_chunked)
 from diner_tpu_torch.utils.pretrained import (graft_resnet34,
                                               load_resnet34_variables)
 
@@ -159,20 +159,51 @@ def select_pixels(cfg: DinerConfig, b, generator=None):
 
 def compute_losses(model: PixelNeRF, cfg: DinerConfig, b, vgg=None,
                    generator=None, noise=None, pix_idcs=None,
-                   update_stats: bool = False):
+                   update_stats: bool = False, mesh=None):
     """Forward and all losses of one step (``diner.py:149-203``) on the
     tensors ``b`` → (total, metrics).
 
     ``pix_idcs`` (SB, rays_per_step) and ``noise`` (the renderer's
     ``(u_coarse, gauss, u_fill)``) are drawn from ``generator`` when not
     given, in that order. ``update_stats`` moves the BN running statistics.
+
+    With a ``mesh`` (``parallel/``) ``b`` and the draws are global and this
+    rank computes its block of the step (``diner.py:173-177`` splits the
+    rays so): its scenes, with BN statistics over every rank's scenes; its
+    rays, with the VGG patch gathered whole. ``total`` is then this rank's
+    share of the loss (the sum over ranks is the global one), and the
+    metrics are the global values.
     """
-    ctx = model.encode(*(b[k] for k in SRC_KEYS), train=True,
-                       update_stats=update_stats)
-    rays_sel, gt = select_rays(cfg, b, generator, pix_idcs)
-    out = render_rays(model.field, ctx, rays_sel, cfg.renderer, noise=noise,
-                      generator=generator)
-    return rgb_losses(cfg, out.rgb, gt, vgg, vgg_dtype=model.dtype)
+    local, stats_mean = b, None
+    if mesh is not None:
+        from diner_tpu_torch.parallel import sharding
+        local, stats_mean = sharding.shard_batch(b, mesh), \
+            sharding.batch_mean(mesh)
+    ctx = model.encode(*(local[k] for k in SRC_KEYS), train=True,
+                       update_stats=update_stats, stats_mean=stats_mean)
+    if pix_idcs is None:
+        pix_idcs = select_pixels(cfg, b, generator)
+    rays_sel, gt = select_rays(cfg, local, pix_idcs=(
+        pix_idcs if mesh is None else sharding.ray_slice(pix_idcs, mesh)))
+    if noise is None:
+        noise = draw_noise(cfg.renderer, *pix_idcs.shape, generator,
+                           rays_sel.device, rays_sel.dtype)
+    if mesh is not None:
+        noise = tuple(None if t is None else sharding.ray_slice(t, mesh)
+                      for t in noise)
+    rgb = render_rays(model.field, ctx, rays_sel, cfg.renderer,
+                      noise=noise).rgb
+    if mesh is None:
+        return rgb_losses(cfg, rgb, gt, vgg, vgg_dtype=model.dtype)
+    if cfg.w_vgg > 0:  # the patch terms convolve the whole patch
+        rgb = sharding.gather_rays(rgb, mesh)
+        gt = sharding.gather_rays(gt, mesh)
+    total, metrics = rgb_losses(cfg, rgb, gt, vgg, vgg_dtype=model.dtype)
+    # every rank holds as many rays and every rank of a ray group the same
+    # patch terms: 1 / ranks of each is its share of the global mean
+    share = 1.0 / mesh.size
+    return total * share, sharding.reduce_metrics(
+        {k: v * share for k, v in metrics.items()}, mesh)
 
 
 def select_rays(cfg: DinerConfig, b, generator=None, pix_idcs=None):
@@ -223,7 +254,8 @@ class TrainStep:
     Holds ``optimizer``, an Adam over every parameter of the model (the
     running statistics are buffers, outside it), and ``step``, the count
     of steps taken. After a call each parameter's ``.grad`` holds the
-    step's gradient. ``loss_fn`` is the step's forward and losses.
+    step's gradient. ``loss_fn`` is the step's forward and losses, and
+    ``complete_gradients`` runs between the backward and Adam.
     """
 
     loss_fn = staticmethod(compute_losses)
@@ -246,12 +278,17 @@ class TrainStep:
                                       generator, noise, pix_idcs,
                                       update_stats=True)
         total.backward()
-        for p in self.model.parameters():
-            if p.grad is None:  # optax steps every parameter, zero or not
-                p.grad = torch.zeros_like(p)
+        self.complete_gradients()
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    def complete_gradients(self):
+        """Give every parameter a gradient: optax steps every parameter,
+        zero or not."""
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def make_train_step(model: PixelNeRF, cfg: DinerConfig,
@@ -262,7 +299,7 @@ def make_train_step(model: PixelNeRF, cfg: DinerConfig,
 
 
 def make_eval_step(model: PixelNeRF, cfg: DinerConfig,
-                   use_running_stats: bool = False):
+                   use_running_stats: bool = False, mesh=None):
     """Full-image renderer: ``(batch, generator=None, noise=None) →
     (rgb (SB, H, W, 3), depth (SB, H, W))`` on the model's device.
 
@@ -270,7 +307,10 @@ def make_eval_step(model: PixelNeRF, cfg: DinerConfig,
     reference's evaluation does, and leaves the running statistics as they
     are. ``noise`` holds whole-image ``(u_coarse, gauss, u_fill)`` arrays
     (see ``render_rays_chunked``); otherwise noise comes from
-    ``generator``, which must live on the model's device.
+    ``generator``, which must live on the model's device. With a ``mesh``
+    (``parallel/``) every rank takes the global batch, encodes its scenes
+    (batch statistics over every rank's), renders its part of each chunk
+    and returns the whole image.
     """
 
     @torch.no_grad()
@@ -278,12 +318,20 @@ def make_eval_step(model: PixelNeRF, cfg: DinerConfig,
         dev = next(model.parameters()).device
         b = batch_to_device(batch, dev)
         SB, H, W, _ = b["target_rgb"].shape
-        ctx = model.encode(*(b[k] for k in SRC_KEYS),
-                           train=not use_running_stats)
+        local, stats_mean, split = b, None, None
+        if mesh is not None:
+            from diner_tpu_torch.parallel import sharding
+            local = sharding.shard_batch(b, mesh)
+            stats_mean = sharding.batch_mean(mesh)
+            split = sharding.RaySplit(mesh, SB)
+        ctx = model.encode(*(local[k] for k in SRC_KEYS),
+                           train=not use_running_stats,
+                           stats_mean=stats_mean)
         rays = target_rays(cfg, b, H, W)
         noise = noise_to_device(noise, dev)
         out = render_rays_chunked(model.field, ctx, rays, cfg.renderer,
-                                  noise=noise, generator=generator)
+                                  noise=noise, generator=generator,
+                                  split=split)
         return out.rgb.reshape(SB, H, W, 3), out.depth.reshape(SB, H, W)
 
     return eval_step

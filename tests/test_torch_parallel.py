@@ -1,8 +1,8 @@
 """The port's ('data', 'rays') mesh (``diner_tpu_torch/parallel/``) on the
 CPU with gloo.
 
-Two processes (``tests/torch_parallel_worker.py``) take one DINER train
-step over a mesh of (2, 1) and of (1, 2) on a fixture with every term the
+Two processes (``tests/torch_parallel_worker.py``) take DINER train
+steps over a mesh of (2, 1) and of (1, 2) on a fixture with every term the
 mesh must get right: train-mode BN (two scenes with different textures),
 the VGG and antibias losses on a 16×16 patch (``w_vgg=0.1``,
 ``w_antibias=1.0``), SB = 2. The fixture's weights are a perturbed flax
@@ -18,13 +18,18 @@ draws from its key, so one batch and one set of draws feed three steps:
   element (Adam's first step moves an element by lr · g / (|g| + ε), whose
   slope in g is at most 1 / ε: where |g| is near ε = 1e-8 a gradient
   that agrees to 1e-10 may move it 1e-6 apart, and a flipped sign 2 · lr
-  apart); the running statistics within 1e-5; the two ranks' parameters
-  equal;
+  apart), and within ``PARAM_LR_FRAC`` · lr (the 2 · lr of a flipped
+  sign is what a fault shows); the running statistics within 1e-5; the two
+  ranks' parameters equal. A second step from each side's weights and
+  Adam state, on the same draws, where Adam's moments are not zero, is
+  held to the one-process second step alike (all but the first-step
+  bound);
 - the JAX one-device step (``diner_tpu/train/diner.py``), which the (1, 2)
   step must equal as the one-process port step does in
   ``tests/test_torch_train.py``: losses 1e-5 relative, gradients 1e-4 of
   their norm, running statistics 1e-4 (flax's one-pass variance), the
-  parameters after optax's Adam as above;
+  parameters after optax's Adam as above, within ``JAX_PARAM_LR_FRAC`` ·
+  lr;
 - the negative controls: the same fixture with per-rank BN statistics at
   (2, 1), or with the patch not gathered at (1, 2), misses these
   tolerances.
@@ -81,6 +86,8 @@ RAY_CHUNK = 256  # the eval renders 4 chunks, each split over the rays
 TOTAL_RTOL = 2e-4
 GRAD_TOL = 1e-4     # of each gradient's norm
 PARAM_ATOL = 1e-6
+PARAM_LR_FRAC = 0.05  # mesh against one process: |Δp| ≤ this · lr
+JAX_PARAM_LR_FRAC = 0.5  # against JAX's step (flax's one-pass variance)
 STATS_ATOL = 1e-5
 
 
@@ -239,26 +246,35 @@ def mesh_runs(fixture):
     return runs
 
 
+def _snapshot(step, metrics):
+    model = step.model
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "adam": {n: (step.optimizer.state[p]["exp_avg"].clone(),
+                         step.optimizer.state[p]["exp_avg_sq"].clone())
+                     for n, p in model.named_parameters()}}
+
+
 @pytest.fixture(scope="module")
 def one_process(fixture):
-    """The port's one-process step and eval render on the fixture."""
+    """The port's one-process step, eval render and second step (Adam's
+    state carried over) on the fixture."""
     model = PixelNeRF(fixture.cfg.nerf)
     model.load_state_dict(fixture.state)
     vgg = VGG19Features()
     vgg.load_state_dict(fixture.vgg)
     step = make_train_step(model, fixture.cfg, vgg)
-    metrics = step(fixture.batch, noise=fixture.noise, pix_idcs=fixture.pix)
+    out = _snapshot(step, step(fixture.batch, noise=fixture.noise,
+                               pix_idcs=fixture.pix))
     eval_step = make_eval_step(model, fixture.cfg)
-    rgb, depth = eval_step(fixture.batch, noise=fixture.eval_noise)
-    one = eval_step({k: v[:1] for k, v in fixture.batch.items()},
-                    noise=tuple(t[:1] for t in fixture.eval_noise))
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
-            "state": model.state_dict(),
-            "adam": {n: (step.optimizer.state[p]["exp_avg"],
-                         step.optimizer.state[p]["exp_avg_sq"])
-                     for n, p in model.named_parameters()},
-            "eval": (rgb, depth), "eval_one": one}
+    out["eval"] = eval_step(fixture.batch, noise=fixture.eval_noise)
+    out["eval_one"] = eval_step(
+        {k: v[:1] for k, v in fixture.batch.items()},
+        noise=tuple(t[:1] for t in fixture.eval_noise))
+    out["second"] = _snapshot(step, step(
+        fixture.batch, noise=fixture.noise, pix_idcs=fixture.pix))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -318,6 +334,32 @@ def _misses(run, ref):
     return miss
 
 
+def _assert_step_close(run, ref, lr):
+    """A mesh rank's step against the one-process step: metrics, every
+    gradient and both of Adam's moments, every parameter after Adam
+    (within PARAM_LR_FRAC · lr) and the running statistics."""
+    assert run["metrics"].keys() == ref["metrics"].keys()
+    for k, v in ref["metrics"].items():
+        np.testing.assert_allclose(run["metrics"][k], v, rtol=TOTAL_RTOL,
+                                   err_msg=k)
+    errs = _grad_errs(run["grads"], ref["grads"])
+    assert max(errs.values()) <= GRAD_TOL, max(errs.items(),
+                                               key=lambda kv: kv[1])
+    for n, (m, v) in ref["adam"].items():
+        gm, gv = run["adam"][n]
+        assert float((gm - m).abs().max()) <= GRAD_TOL * float(
+            m.norm()) + 1e-30, n
+        assert float((gv - v).abs().max()) <= GRAD_TOL * float(
+            v.norm()) + 1e-30, n
+    worst = max(((float((run["state"][n] - ref["state"][n]).abs().max())
+                  / lr, n) for n in ref["grads"]))
+    assert worst[0] <= PARAM_LR_FRAC, worst
+    for k in _stats(ref["state"]):
+        np.testing.assert_allclose(run["state"][k].numpy(),
+                                   ref["state"][k].numpy(),
+                                   atol=STATS_ATOL, rtol=0, err_msg=k)
+
+
 @pytest.mark.parametrize("case", ["mesh_2x1", "mesh_1x2"])
 def test_mesh_step_equals_one_process_step(mesh_runs, one_process, fixture,
                                            case):
@@ -328,24 +370,8 @@ def test_mesh_step_equals_one_process_step(mesh_runs, one_process, fixture,
     assert sorted(ref["metrics"]) == ["antibias", "rgb_fine", "total",
                                       "vgg_fine"]
     for run in ranks:
-        assert run["metrics"].keys() == ref["metrics"].keys()
-        for k, v in ref["metrics"].items():
-            np.testing.assert_allclose(run["metrics"][k], v, rtol=TOTAL_RTOL,
-                                       err_msg=k)
-        errs = _grad_errs(run["grads"], ref["grads"])
-        assert max(errs.values()) <= GRAD_TOL, max(errs.items(),
-                                                   key=lambda kv: kv[1])
-        for n, (m, v) in ref["adam"].items():
-            gm, gv = run["adam"][n]
-            assert float((gm - m).abs().max()) <= GRAD_TOL * float(
-                m.norm()) + 1e-30, n
-            assert float((gv - v).abs().max()) <= GRAD_TOL * float(
-                v.norm()) + 1e-30, n
+        _assert_step_close(run, ref, fixture.cfg.lr)
         _assert_adam_close(run, ref, fixture.cfg.lr)
-        for k in _stats(ref["state"]):
-            np.testing.assert_allclose(run["state"][k].numpy(),
-                                       ref["state"][k].numpy(),
-                                       atol=STATS_ATOL, rtol=0, err_msg=k)
         for got, want in zip(run["eval"] + run["eval_one"],
                              ref["eval"] + ref["eval_one"]):
             assert got.shape == want.shape
@@ -356,6 +382,19 @@ def test_mesh_step_equals_one_process_step(mesh_runs, one_process, fixture,
         assert torch.equal(v, ranks[1]["state"][k]), k
     assert not torch.equal(ranks[0]["state"]["mlp.lin_in.weight"],
                            fixture.state["mlp.lin_in.weight"])
+
+
+@pytest.mark.parametrize("case", ["mesh_2x1", "mesh_1x2"])
+def test_mesh_second_step_equals_one_process_step(mesh_runs, one_process,
+                                                  fixture, case):
+    """A second step from the first one's weights and Adam state, where
+    Adam's moments are not zero, against the one-process second step."""
+    ref = one_process["second"]
+    assert any(float(g.abs().max()) > 0 for g in ref["grads"].values())
+    for run in mesh_runs[case]:
+        _assert_step_close(run["second"], ref, fixture.cfg.lr)
+    for k, v in mesh_runs[case][0]["second"]["state"].items():
+        assert torch.equal(v, mesh_runs[case][1]["second"]["state"][k]), k
 
 
 def _stats(state):
@@ -372,6 +411,9 @@ def test_mesh_1x2_step_equals_jax_step(mesh_runs, jax_step, fixture):
         assert max(errs.values()) <= 1e-4, max(errs.items(),
                                                key=lambda kv: kv[1])
         _assert_adam_close(run, ref, fixture.cfg.lr)
+        worst = max(((float((run["state"][n] - ref["state"][n]).abs().max())
+                      / fixture.cfg.lr, n) for n in ref["grads"]))
+        assert worst[0] <= JAX_PARAM_LR_FRAC, worst
         for k in _stats(ref["state"]):
             np.testing.assert_allclose(run["state"][k].numpy(),
                                        ref["state"][k].numpy(), atol=1e-4,

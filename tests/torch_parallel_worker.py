@@ -3,11 +3,12 @@
 Run as ``python tests/torch_parallel_worker.py <rank> <world> <port>
 <workdir>``. It joins a gloo group on ``127.0.0.1:<port>`` through
 ``diner_tpu_torch.parallel.initialize``, checks the metric reduction and
-the barrier (``utils/meters.py``), then takes one mesh train step and one
-mesh eval render for each case of ``CASES`` from ``workdir/fixture.pt``
-(the model's state, the VGG, the config, the global batch and draws),
-and saves what it got to ``workdir/<case>_rank<rank>.pt``. Imports torch
-and the port only.
+the barrier (``utils/meters.py``), then, for each case of ``CASES``, takes
+a mesh train step, a mesh eval render and a second train step (Adam's
+state carried over; the defect cases take the first step only) from
+``workdir/fixture.pt`` (the model's state, the VGG, the config, the
+global batch and draws), and saves what it got to
+``workdir/<case>_rank<rank>.pt``. Imports torch and the port only.
 """
 
 import sys
@@ -25,13 +26,24 @@ from diner_tpu_torch.parallel import (initialize,  # noqa: E402
                                       make_parallel_eval_step,
                                       make_parallel_train_step, shutdown)
 from diner_tpu_torch.parallel import sharding  # noqa: E402
-from diner_tpu_torch.parallel import train as ptrain  # noqa: E402
 from diner_tpu_torch.utils import meters  # noqa: E402
 
 # case → (data_parallel, defect): the two meshes, then the two defects the
 # negative controls plant (per-rank BN statistics; a patch not gathered)
 CASES = {"mesh_2x1": (2, None), "mesh_1x2": (1, None),
          "per_rank_bn": (2, "bn"), "patch_not_gathered": (1, "patch")}
+
+
+def snapshot(step, metrics):
+    """What a train step left: its metrics, every gradient, the model's
+    state and Adam's two moments."""
+    model = step.model
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "adam": {n: (step.optimizer.state[p]["exp_avg"].clone(),
+                         step.optimizer.state[p]["exp_avg_sq"].clone())
+                     for n, p in model.named_parameters()}}
 
 
 def run_case(fix, data_parallel, defect):
@@ -42,23 +54,17 @@ def run_case(fix, data_parallel, defect):
     vgg = VGG19Features()
     vgg.load_state_dict(fix["vgg"])
     step = make_parallel_train_step(model, cfg, mesh, vgg)
-    gather = ptrain.gather_rays
+    batch_mean, gather_rays = sharding.batch_mean, sharding.gather_rays
     if defect == "bn":
-        sharding.sync_batch_stats(model, None)
+        sharding.batch_mean = lambda mesh: None
     elif defect == "patch":
-        ptrain.gather_rays = lambda x, mesh: x
+        sharding.gather_rays = lambda x, mesh: x
     try:
         metrics = step(fix["batch"], noise=fix["noise"],
                        pix_idcs=fix["pix"])
     finally:
-        ptrain.gather_rays = gather
-    out = {"mesh": (mesh.data, mesh.rays),
-           "metrics": {k: float(v) for k, v in metrics.items()},
-           "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
-           "state": {k: v.clone() for k, v in model.state_dict().items()},
-           "adam": {n: (step.optimizer.state[p]["exp_avg"].clone(),
-                        step.optimizer.state[p]["exp_avg_sq"].clone())
-                    for n, p in model.named_parameters()}}
+        sharding.batch_mean, sharding.gather_rays = batch_mean, gather_rays
+    out = {"mesh": (mesh.data, mesh.rays), **snapshot(step, metrics)}
     if defect is None:
         eval_step = make_parallel_eval_step(model, cfg, mesh)
         out["eval"] = eval_step(fix["batch"], noise=fix["eval_noise"])
@@ -67,6 +73,8 @@ def run_case(fix, data_parallel, defect):
         out["eval_one"] = eval_step(
             {k: v[:1] for k, v in fix["batch"].items()},
             noise=tuple(t[:1] for t in fix["eval_noise"]))
+        out["second"] = snapshot(step, step(
+            fix["batch"], noise=fix["noise"], pix_idcs=fix["pix"]))
     return out
 
 
