@@ -1,0 +1,8 @@
+"""Device idle share over a traced whole image: 1 - union of device-op
+intervals / the stretch."""
+
+from benchmark.metrics._share import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)

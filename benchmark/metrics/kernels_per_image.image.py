@@ -1,0 +1,7 @@
+"""Device kernels in the trace per image (copies and fills left out)."""
+
+from benchmark.metrics._share import per_unit
+
+
+def read(ctx):
+    return per_unit(ctx, ctx["trace"]["kernels"])
