@@ -23,6 +23,7 @@ from diner_tpu_torch.ops.knn import deform_points
 from diner_tpu_torch.ops.sampling import fill_up_uniform, sample_depthguided
 from diner_tpu_torch.renderer.renderer import (RendererConfig, RenderOutput,
                                                draw_noise)
+from diner_tpu_torch.utils import profiling
 
 
 def render_rays_novel(field_fn, ctx: SceneContext, gen: GenContext, rays,
@@ -38,34 +39,40 @@ def render_rays_novel(field_fn, ctx: SceneContext, gen: GenContext, rays,
     sampler's candidates, then the samples twice.
     """
     SB, NR, _ = rays.shape
-    if noise is None:
-        noise = draw_noise(cfg, SB, NR, generator, rays.device, rays.dtype)
-    u_coarse, gauss, u_fill = noise
 
     def deform_to_source(xyz):
         return deform_points(xyz, target_vertices, offsets_to_source)
 
-    with torch.no_grad():
-        z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
-                               cfg.n_depth_candidates, u_coarse, gauss,
-                               cfg.n_gaussian, cfg.depth_diff_max,
-                               deform_fn=deform_to_source)
-        z = fill_up_uniform(z, rays, u_fill)
+    with profiling.span("sampler"):
+        if noise is None:
+            noise = draw_noise(cfg, SB, NR, generator, rays.device,
+                               rays.dtype)
+        u_coarse, gauss, u_fill = noise
+        with torch.no_grad():
+            z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
+                                   cfg.n_depth_candidates, u_coarse, gauss,
+                                   cfg.n_gaussian, cfg.depth_diff_max,
+                                   deform_fn=deform_to_source)
+            z = fill_up_uniform(z, rays, u_fill)
+        K = cfg.n_samples
+        points = (rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]
+                  ).reshape(SB, NR * K, 3)
+        viewdirs = rays[..., None, 3:6].expand(SB, NR, K, 3).reshape(
+            SB, NR * K, 3)
+        pts_obs = deform_points(points, target_vertices, offsets_to_source)
+        pts_gen = deform_points(points, target_vertices, offsets_to_gen)
 
-    K = cfg.n_samples
-    points = (rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]
-              ).reshape(SB, NR * K, 3)
-    viewdirs = rays[..., None, 3:6].expand(SB, NR, K, 3).reshape(
-        SB, NR * K, 3)
-    pts_obs = deform_points(points, target_vertices, offsets_to_source)
-    pts_gen = deform_points(points, target_vertices, offsets_to_gen)
+    with profiling.span("field"):
+        out = field_fn(ctx, gen, pts_obs, pts_gen, viewdirs)
+        profiling.mark(out, "field")
 
-    out = field_fn(ctx, gen, pts_obs, pts_gen, viewdirs).reshape(
-        SB, NR, K, 4)
-    composite = (composite_plain.composite if cfg.composite_impl == "torch"
-                 else composite_cuda.composite)
-    comp = composite(out[..., :3], out[..., 3], z, rays,
-                     white_bkgd=cfg.white_bkgd)
+    with profiling.span("composite"):
+        out = out.reshape(SB, NR, K, 4)
+        composite = (composite_plain.composite if cfg.composite_impl == "torch"
+                     else composite_cuda.composite)
+        comp = composite(out[..., :3], out[..., 3], z, rays,
+                         white_bkgd=cfg.white_bkgd)
+        profiling.mark(comp.rgb, "composite")
     return RenderOutput(rgb=comp.rgb, depth=comp.depth,
                         weights=comp.weights if want_weights else None)
 

@@ -25,6 +25,7 @@ from diner_tpu_torch.models.novel.model import (NovelPixelNeRF,
 from diner_tpu_torch.models.novel.renderer import render_rays_novel
 from diner_tpu_torch.train.diner import (SRC_KEYS, DinerConfig, TrainStep,
                                          rgb_losses, select_rays)
+from diner_tpu_torch.utils import profiling
 
 NOVEL_KEYS = ("target_vertices", "offset_target_to_source",
               "offset_target_to_gen")
@@ -63,14 +64,19 @@ def compute_novel_losses(model: NovelPixelNeRF, cfg: NovelConfig, b,
     drawn from ``generator`` when not given, in that order. The VGG loss
     runs in f32, as the JAX package's NOVEL step does."""
     SB, H, W, _ = b["target_rgb"].shape
-    ctx = model.encode(*(b[k] for k in SRC_KEYS), train=True,
-                       update_stats=update_stats)
-    gen = gen_context_of(model, b, W, H)
+    with profiling.span("encode"):
+        ctx = model.encode(*(b[k] for k in SRC_KEYS), train=True,
+                           update_stats=update_stats)
+        profiling.mark(ctx.latent, "encode")
+        gen = gen_context_of(model, b, W, H)
     rays_sel, gt = select_rays(cfg, b, generator, pix_idcs)
     out = render_rays_novel(model.field, ctx, gen, rays_sel,
                             *(b[k] for k in NOVEL_KEYS), cfg.renderer,
                             noise=noise, generator=generator)
-    return rgb_losses(cfg, out.rgb, gt, vgg)
+    with profiling.span("loss"):
+        total, metrics = rgb_losses(cfg, out.rgb, gt, vgg)
+        profiling.mark(total, "loss")
+    return total, metrics
 
 
 class NovelTrainStep(TrainStep):

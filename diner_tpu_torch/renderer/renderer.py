@@ -32,6 +32,7 @@ from diner_tpu_torch.ops import composite_cuda
 from diner_tpu_torch.ops.sampling import (check_pruned, fill_up_uniform,
                                           sample_depthguided,
                                           sample_depthguided_pruned)
+from diner_tpu_torch.utils import profiling
 
 COMPOSITE_IMPLS = ("xla", "pallas", "torch")
 
@@ -90,32 +91,40 @@ def render_rays(field_fn: FieldFn, ctx: SceneContext, rays,
     """Render (SB, NR, 8) rays; ``noise`` = (u_coarse, gauss, u_fill) or
     None to draw it from ``generator``."""
     SB, NR, _ = rays.shape
-    if noise is None:
-        noise = draw_noise(cfg, SB, NR, generator, rays.device, rays.dtype)
-    u_coarse, gauss, u_fill = noise
+    with profiling.span("sampler"):
+        if noise is None:
+            noise = draw_noise(cfg, SB, NR, generator, rays.device,
+                               rays.dtype)
+        u_coarse, gauss, u_fill = noise
+        with torch.no_grad():
+            if cfg.n_coarse_candidates > 0:
+                z = sample_depthguided_pruned(
+                    rays, ctx.view_maps(), cfg.n_samples,
+                    cfg.n_depth_candidates, cfg.n_coarse_candidates,
+                    cfg.n_refine_bins, u_coarse, gauss, cfg.n_gaussian,
+                    cfg.depth_diff_max)
+            else:
+                z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
+                                       cfg.n_depth_candidates, u_coarse,
+                                       gauss, cfg.n_gaussian,
+                                       cfg.depth_diff_max)
+            z = fill_up_uniform(z, rays, u_fill)  # (SB, NR, K) ascending
+        K = cfg.n_samples
+        points = rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]
+        viewdirs = rays[..., None, 3:6].expand(points.shape)
 
-    with torch.no_grad():
-        if cfg.n_coarse_candidates > 0:
-            z = sample_depthguided_pruned(
-                rays, ctx.view_maps(), cfg.n_samples, cfg.n_depth_candidates,
-                cfg.n_coarse_candidates, cfg.n_refine_bins, u_coarse, gauss,
-                cfg.n_gaussian, cfg.depth_diff_max)
-        else:
-            z = sample_depthguided(rays, ctx.view_maps(), cfg.n_samples,
-                                   cfg.n_depth_candidates, u_coarse, gauss,
-                                   cfg.n_gaussian, cfg.depth_diff_max)
-        z = fill_up_uniform(z, rays, u_fill)  # (SB, NR, K) ascending
+    with profiling.span("field"):
+        out = field_fn(ctx, points.reshape(SB, NR * K, 3),
+                       viewdirs.reshape(SB, NR * K, 3))
+        profiling.mark(out, "field")
 
-    K = cfg.n_samples
-    points = rays[..., None, :3] + z[..., None] * rays[..., None, 3:6]
-    viewdirs = rays[..., None, 3:6].expand(points.shape)
-    out = field_fn(ctx, points.reshape(SB, NR * K, 3),
-                   viewdirs.reshape(SB, NR * K, 3)).reshape(SB, NR, K, 4)
-
-    composite = (composite_plain.composite if cfg.composite_impl == "torch"
-                 else composite_cuda.composite)
-    comp = composite(out[..., :3], out[..., 3], z, rays,
-                     white_bkgd=cfg.white_bkgd)
+    with profiling.span("composite"):
+        out = out.reshape(SB, NR, K, 4)
+        composite = (composite_plain.composite if cfg.composite_impl == "torch"
+                     else composite_cuda.composite)
+        comp = composite(out[..., :3], out[..., 3], z, rays,
+                         white_bkgd=cfg.white_bkgd)
+        profiling.mark(comp.rgb, "composite")
     return RenderOutput(rgb=comp.rgb, depth=comp.depth,
                         weights=comp.weights if want_weights else None)
 

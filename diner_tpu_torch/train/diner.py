@@ -29,6 +29,7 @@ from diner_tpu_torch.losses import antibias_loss, mse_loss, vgg_loss
 from diner_tpu_torch.models.pixelnerf import PixelNeRF, PixelNeRFConfig
 from diner_tpu_torch.renderer import (RendererConfig, draw_noise,
                                       render_rays, render_rays_chunked)
+from diner_tpu_torch.utils import profiling
 from diner_tpu_torch.utils.pretrained import (graft_resnet34,
                                               load_resnet34_variables)
 
@@ -179,8 +180,10 @@ def compute_losses(model: PixelNeRF, cfg: DinerConfig, b, vgg=None,
         from diner_tpu_torch.parallel import sharding
         local, stats_mean = sharding.shard_batch(b, mesh), \
             sharding.batch_mean(mesh)
-    ctx = model.encode(*(local[k] for k in SRC_KEYS), train=True,
-                       update_stats=update_stats, stats_mean=stats_mean)
+    with profiling.span("encode"):
+        ctx = model.encode(*(local[k] for k in SRC_KEYS), train=True,
+                           update_stats=update_stats, stats_mean=stats_mean)
+        profiling.mark(ctx.latent, "encode")
     if pix_idcs is None:
         pix_idcs = select_pixels(cfg, b, generator)
     rays_sel, gt = select_rays(cfg, local, pix_idcs=(
@@ -193,17 +196,21 @@ def compute_losses(model: PixelNeRF, cfg: DinerConfig, b, vgg=None,
                       for t in noise)
     rgb = render_rays(model.field, ctx, rays_sel, cfg.renderer,
                       noise=noise).rgb
-    if mesh is None:
-        return rgb_losses(cfg, rgb, gt, vgg, vgg_dtype=model.dtype)
-    if cfg.w_vgg > 0:  # the patch terms convolve the whole patch
-        rgb = sharding.gather_rays(rgb, mesh)
-        gt = sharding.gather_rays(gt, mesh)
-    total, metrics = rgb_losses(cfg, rgb, gt, vgg, vgg_dtype=model.dtype)
-    # every rank holds as many rays and every rank of a ray group the same
-    # patch terms: 1 / ranks of each is its share of the global mean
-    share = 1.0 / mesh.size
-    return total * share, sharding.reduce_metrics(
-        {k: v * share for k, v in metrics.items()}, mesh)
+    with profiling.span("loss"):
+        if mesh is not None and cfg.w_vgg > 0:
+            # the patch terms convolve the whole patch
+            rgb = sharding.gather_rays(rgb, mesh)
+            gt = sharding.gather_rays(gt, mesh)
+        total, metrics = rgb_losses(cfg, rgb, gt, vgg, vgg_dtype=model.dtype)
+        if mesh is not None:
+            # every rank holds as many rays and every rank of a ray group
+            # the same patch terms: 1 / ranks of each is its share of the
+            # global mean
+            share = 1.0 / mesh.size
+            total, metrics = total * share, sharding.reduce_metrics(
+                {k: v * share for k, v in metrics.items()}, mesh)
+        profiling.mark(total, "loss")
+    return total, metrics
 
 
 def select_rays(cfg: DinerConfig, b, generator=None, pix_idcs=None):
@@ -269,19 +276,23 @@ class TrainStep:
 
     def __call__(self, batch, generator=None, noise=None, pix_idcs=None):
         dev = next(self.model.parameters()).device
-        b = batch_to_device(batch, dev)
-        noise = noise_to_device(noise, dev)
-        if pix_idcs is not None:
-            pix_idcs = torch.as_tensor(pix_idcs).to(dev)
-        self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self.loss_fn(self.model, self.cfg, b, self.vgg,
-                                      generator, noise, pix_idcs,
-                                      update_stats=True)
-        total.backward()
-        self.complete_gradients()
-        self.optimizer.step()
-        self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        with profiling.span("train_step", dev):
+            b = batch_to_device(batch, dev)
+            noise = noise_to_device(noise, dev)
+            if pix_idcs is not None:
+                pix_idcs = torch.as_tensor(pix_idcs).to(dev)
+            with profiling.span("optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            total, metrics = self.loss_fn(self.model, self.cfg, b, self.vgg,
+                                          generator, noise, pix_idcs,
+                                          update_stats=True)
+            with profiling.span("backward"):
+                total.backward()
+            with profiling.span("optimizer"):
+                self.complete_gradients()
+                self.optimizer.step()
+            self.step += 1
+            return {k: v.detach() for k, v in metrics.items()}
 
     def complete_gradients(self):
         """Give every parameter a gradient: optax steps every parameter,
@@ -316,22 +327,25 @@ def make_eval_step(model: PixelNeRF, cfg: DinerConfig,
     @torch.no_grad()
     def eval_step(batch, generator=None, noise=None):
         dev = next(model.parameters()).device
-        b = batch_to_device(batch, dev)
-        SB, H, W, _ = b["target_rgb"].shape
-        local, stats_mean, split = b, None, None
-        if mesh is not None:
-            from diner_tpu_torch.parallel import sharding
-            local = sharding.shard_batch(b, mesh)
-            stats_mean = sharding.batch_mean(mesh)
-            split = sharding.RaySplit(mesh, SB)
-        ctx = model.encode(*(local[k] for k in SRC_KEYS),
-                           train=not use_running_stats,
-                           stats_mean=stats_mean)
-        rays = target_rays(cfg, b, H, W)
-        noise = noise_to_device(noise, dev)
-        out = render_rays_chunked(model.field, ctx, rays, cfg.renderer,
-                                  noise=noise, generator=generator,
-                                  split=split)
-        return out.rgb.reshape(SB, H, W, 3), out.depth.reshape(SB, H, W)
+        with profiling.span("eval_image", dev):
+            b = batch_to_device(batch, dev)
+            SB, H, W, _ = b["target_rgb"].shape
+            local, stats_mean, split = b, None, None
+            if mesh is not None:
+                from diner_tpu_torch.parallel import sharding
+                local = sharding.shard_batch(b, mesh)
+                stats_mean = sharding.batch_mean(mesh)
+                split = sharding.RaySplit(mesh, SB)
+            with profiling.span("encode"):
+                ctx = model.encode(*(local[k] for k in SRC_KEYS),
+                                   train=not use_running_stats,
+                                   stats_mean=stats_mean)
+            rays = target_rays(cfg, b, H, W)
+            noise = noise_to_device(noise, dev)
+            out = render_rays_chunked(model.field, ctx, rays, cfg.renderer,
+                                      noise=noise, generator=generator,
+                                      split=split)
+            return (out.rgb.reshape(SB, H, W, 3),
+                    out.depth.reshape(SB, H, W))
 
     return eval_step
