@@ -30,7 +30,7 @@ from diner_tpu_torch.geometry.transforms import (
 from diner_tpu_torch.models.pixelnerf import PixelNeRF, PixelNeRFConfig
 from diner_tpu_torch.models.scene import SceneContext, index_latent
 from diner_tpu_torch.nn.resnet import lecun_normal_
-from diner_tpu_torch.nn.resnetfc import Dense
+from diner_tpu_torch.nn.resnetfc import Dense, cat_aligned
 from diner_tpu_torch.ops.grid_sample import (grid_sample_bilinear,
                                              grid_sample_nearest)
 
@@ -134,8 +134,8 @@ class NovelPixelNeRF(PixelNeRF):
                     ctx, latent=maps, latent_pairs=None), uv)
             tgt = gen.tgt_pe_map.expand(
                 (SB, NV) + tuple(gen.tgt_pe_map.shape[2:]))
-            conditioned = torch.cat([latent, pe_at(gen.src_pe_maps),
-                                     pe_at(tgt)], dim=-1)
+            conditioned = cat_aligned([latent, pe_at(gen.src_pe_maps),
+                                       pe_at(tgt)])
             latent = self.deformation_layer(conditioned)
 
         final_latent = gen_latent + latent  # f32 plane: promotes, as JAX
@@ -146,11 +146,9 @@ class NovelPixelNeRF(PixelNeRF):
         depth_dist = ref_depth - xyz_cam[..., 2]
 
         dt = self.dtype
-        mlp_in = torch.cat([final_latent.to(dt), cfg.poscode(xyz_cam).to(dt),
-                            dirs_cam.to(dt),
-                            cfg.depthcode(depth_dist[..., None]).to(dt)],
-                           dim=-1)
-        out = self.mlp(mlp_in).float()
+        features = cat_aligned([cfg.poscode(xyz_cam).to(dt), dirs_cam.to(dt),
+                                cfg.depthcode(depth_dist[..., None]).to(dt)])
+        out = self.mlp(final_latent.to(dt), features).float()
         return torch.cat([torch.sigmoid(out[..., :3]),
                           torch.relu(out[..., 3:4])], dim=-1)
 

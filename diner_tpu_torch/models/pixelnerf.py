@@ -24,7 +24,7 @@ from diner_tpu_torch.geometry.transforms import (
 )
 from diner_tpu_torch.models.scene import SceneContext, index_latent
 from diner_tpu_torch.nn.positional_encoding import PositionalEncoding
-from diner_tpu_torch.nn.resnetfc import ResnetFC
+from diner_tpu_torch.nn.resnetfc import ResnetFC, cat_aligned
 from diner_tpu_torch.nn.spatial_encoder import (
     SpatialEncoder,
     SpatialEncoderConfig,
@@ -136,14 +136,14 @@ class PixelNeRF(nn.Module):
             uv.reshape(SB * NV, B, 2), "border").reshape(SB, NV, B)
         depth_dist = ref_depth - xyz_cam[..., 2]
 
-        # JAX concatenates in f32 and each Dense casts to the compute
-        # dtype; casting the parts first gives the same values in less memory
+        # JAX concatenates [latent, features] in f32 and each Dense casts
+        # to the compute dtype; casting the parts first gives the same
+        # values in less memory, and the latent enters apart, contiguous
+        # (nn/resnetfc.py)
         dt = self.dtype
-        mlp_in = torch.cat([latent.to(dt), cfg.poscode(xyz_cam).to(dt),
-                            dirs_cam.to(dt),
-                            cfg.depthcode(depth_dist[..., None]).to(dt)],
-                           dim=-1)
-        out = self.mlp(mlp_in).float()  # composite stays f32
+        features = cat_aligned([cfg.poscode(xyz_cam).to(dt), dirs_cam.to(dt),
+                                cfg.depthcode(depth_dist[..., None]).to(dt)])
+        out = self.mlp(latent.to(dt), features).float()  # composite: f32
         return torch.cat([torch.sigmoid(out[..., :3]),
                           torch.relu(out[..., 3:4])], dim=-1)
 

@@ -5,6 +5,14 @@ width ``d_hidden``; the latent enters through ``lin_z_i`` before
 ``combine_layer`` only, where the view axis is averaged. Init as the JAX
 initializers: kaiming-normal fan-in weights, zero biases, zero ``fc_1``.
 Matrix products run in the compute dtype, parameters stay f32.
+
+Every product's operands have rows that start on multiples of
+``ALIGN_BYTES``: cuBLAS runs bf16 products of other rows in Turing-era
+``align1`` kernels, and ``F.linear`` adds the bias in a pass of its own to
+an input that is not contiguous. So the latent and the point features enter :class:`ResnetFC`
+as two tensors, not as slices of one concatenation, and features of a
+width whose rows would not align are zero-padded by :func:`cat_aligned`,
+each :class:`Dense` padding its cast weight to match.
 """
 
 from __future__ import annotations
@@ -15,9 +23,43 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+ALIGN_BYTES = 16
+# Dense calls since the count was last set to 0 whose input or cast weight
+# has a row that does not start on a multiple of ALIGN_BYTES (read by the
+# tests)
+misaligned = 0
+
+
+def aligned_width(width: int, dtype: torch.dtype) -> int:
+    """The least width ≥ ``width`` whose rows of ``dtype`` span a multiple
+    of ``ALIGN_BYTES``."""
+    n = ALIGN_BYTES // dtype.itemsize
+    return -(-width // n) * n
+
+
+def cat_aligned(parts):
+    """``torch.cat(parts, -1)`` with zero columns appended up to
+    :func:`aligned_width`: a zero term adds exactly 0 to a product's sums."""
+    width = sum(p.shape[-1] for p in parts)
+    pad = aligned_width(width, parts[0].dtype) - width
+    if pad:
+        parts = [*parts, parts[0].new_zeros(parts[0].shape[:-1] + (pad,))]
+    return torch.cat(parts, dim=-1)
+
+
+def _rows_aligned(t) -> bool:
+    """Whether every row of ``t`` (its last axis) is unit-strided and starts
+    on a multiple of ``ALIGN_BYTES``."""
+    size = t.element_size()
+    return (t.data_ptr() % ALIGN_BYTES == 0 and t.stride(-1) == 1
+            and all(s * size % ALIGN_BYTES == 0
+                    for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1))
+
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: weight stored (out, in) as in ``nn.Linear``."""
+    """flax ``nn.Dense``: weight stored (out, in) as in ``nn.Linear``. An
+    input zero-padded to :func:`aligned_width` by :func:`cat_aligned` meets
+    a weight padded with zero columns as wide."""
 
     def __init__(self, d_in, d_out, bias=True, zero_init=False,
                  dtype=torch.float32):
@@ -37,9 +79,16 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        global misaligned
         dt = self.dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        d_in = w.shape[1]
+        if x.shape[-1] != d_in and x.shape[-1] == aligned_width(d_in, dt):
+            w = F.pad(w, (0, x.shape[-1] - d_in))
+        if not (_rows_aligned(x) and _rows_aligned(w)):
+            misaligned += 1
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x, w, bias)
 
 
 def _activation(beta: float):
@@ -69,7 +118,9 @@ class ResnetBlockFC(nn.Module):
 
 
 class ResnetFC(nn.Module):
-    """Input last axis is ``[latent (d_latent), x (d_in)]``; ``combine_axis``
+    """The JAX package's ``ResnetFC`` of ``[z, x]`` as ``forward(z, x)``: the
+    latent ``z`` (..., d_latent), None without one, and the point features
+    ``x`` (..., d_in), or as :func:`cat_aligned` pads them; ``combine_axis``
     (the source-view axis for DINER) is averaged at ``combine_layer``."""
 
     def __init__(self, d_in, d_out=4, n_blocks=5, d_latent=0, d_hidden=128,
@@ -89,9 +140,8 @@ class ResnetFC(nn.Module):
                 d_hidden, d_hidden, beta=beta, dtype=dtype))
         self.lin_out = Dense(d_hidden, d_out, dtype=dtype)
 
-    def forward(self, zx):
-        z = zx[..., :self.d_latent] if self.d_latent > 0 else None
-        x = self.lin_in(zx[..., self.d_latent:])
+    def forward(self, z, x):
+        x = self.lin_in(x)
         for blkid in range(self.n_blocks):
             if blkid == self.combine_layer:
                 x = torch.mean(x, dim=self.combine_axis)

@@ -157,21 +157,74 @@ def test_spatial_encoder_bf16_keeps_bf16():
     assert all(p.dtype == torch.float32 for p in tm.parameters())
 
 
-def test_resnetfc():
-    d_latent, d_in, NV, B = 16, 55, 2, 30
+@pytest.mark.parametrize("d_latent,d_hidden,dtype,atol", [
+    (16, 32, "float32", 1e-4),
+    (512, 512, "float32", 1e-4),   # DINER's widths
+    (512, 64, "bfloat16", 0.2),    # 2e-2 of outputs up to ≈ 9
+])
+def test_resnetfc(d_latent, d_hidden, dtype, atol):
+    """The port's ResnetFC of the latent and the zero-padded features,
+    apart, against the JAX one of their concatenation."""
+    d_in, NV, B = 55, 2, 30
     zx = np.random.default_rng(6).normal(
         0, 1, (1, NV, B, d_latent + d_in)).astype(np.float32)
     jm = jfc.ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=d_latent,
-                      d_hidden=32, combine_layer=3, combine_axis=1)
+                      d_hidden=d_hidden, combine_layer=3, combine_axis=1,
+                      dtype=getattr(jnp, dtype))
     variables = _perturb(jm.init(jax.random.PRNGKey(2), jnp.asarray(zx)), 7)
-    ref = jm.apply(variables, jnp.asarray(zx))
+    ref = np.asarray(jm.apply(variables, jnp.asarray(zx)), np.float32)
+    dt = getattr(torch, dtype)
     tm = tfc.ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=d_latent,
-                      d_hidden=32, combine_layer=3, combine_axis=1)
+                      d_hidden=d_hidden, combine_layer=3, combine_axis=1,
+                      dtype=dt)
     tm.load_state_dict(flax_to_state_dict(variables))
+    z = _t(zx[..., :d_latent]).to(dt)
+    x = tfc.cat_aligned([_t(zx[..., d_latent:]).to(dt)])
+    assert x.shape[-1] == 56
+    before = tfc.misaligned
     with torch.no_grad():
-        out = tm(_t(zx))
+        out = tm(z, x).float()
+    assert tfc.misaligned == before
     assert out.shape == ref.shape == (1, B, 4)
-    _close(out, ref, 1e-4)
+    _close(out, ref, atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_zero_padded_input(dtype):
+    """lin_in's product of zero-padded features and its zero-padded weight
+    gives the unpadded product's values and the (512, 55) weight's
+    gradient."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3)
+    dense = tfc.Dense(55, 512, dtype=dt)
+    dense.reset_parameters(gen)
+    with torch.no_grad():
+        dense.bias.normal_(0.0, 1.0, generator=gen)
+    x = torch.randn(3, 40, 55, generator=gen).to(dt)
+    g = torch.randn(3, 40, 512, generator=gen).to(dt)
+    outs, grads = [], []
+    for inp in (x, tfc.cat_aligned([x])):
+        dense.weight.grad = None
+        out = dense(inp)
+        out.backward(g)
+        outs.append(out.float())
+        grads.append(dense.weight.grad.clone())
+    assert grads[1].shape == (512, 55)
+    tol = {} if dtype == "float32" else dict(rtol=1.6e-2, atol=1e-2)
+    torch.testing.assert_close(outs[1], outs[0], **tol)
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-4)
+
+
+def test_misaligned_counter():
+    """A Dense fed a slice of the 567-wide concatenation counts one call."""
+    dense = tfc.Dense(512, 8, dtype=torch.bfloat16)
+    dense.reset_parameters(torch.Generator().manual_seed(0))
+    zx = torch.randn(2, 10, 567).to(torch.bfloat16)
+    before = tfc.misaligned
+    dense(zx[..., :512].contiguous())
+    assert tfc.misaligned == before
+    dense(zx[..., :512])
+    assert tfc.misaligned == before + 1
 
 
 def test_bridge_layouts():
